@@ -1,0 +1,172 @@
+"""The Monte-Carlo robustness sweep (counterpart of
+code_robchar_tpu/mc/engine.py).
+
+For every lattice element — noise level l x controller c x bootstrap rep
+b, flattened as ``gid = (l*C + c)*B + b`` — the sweep draws a structured
+perturbation from ``fold_in(key, gid)`` (split into the diagonal,
+real-coupling and imaginary-coupling keys, as the JAX engine does),
+assembles the perturbed, biased Hamiltonian in the lanes layout
+(ops/noise.assemble_lanes) and scores its transfer fidelity
+(ops/cuda_jacobi.fidelity_herm: the CUDA kernel for CUDA tensors, the
+plain version for CPU ones):
+
+    fid[l, c, b] = |<out| exp(-i T_c (H0 + Z(key_lcb, sigma_l)
+                    + diag(x_c))) |in>|^2
+
+The lattice runs as a Python loop over chunks of about ``chunk`` elements.
+``mc_metric_sweep`` takes whole (noise, controller) cells per chunk —
+the bootstrap axis is fastest — and reduces each chunk at once to the
+five-metric x three-band tensors (``metric_tensors``), so the (L, C, B)
+fidelity tensor is never held.  Same keys, so the same draws as the
+unfused ``mc_fidelity_sweep``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from code_robchar_tpu_torch import config
+from code_robchar_tpu_torch.metrics.rim import (compute_dkw_error,
+                                                wd_from_ideal_zero)
+from code_robchar_tpu_torch.metrics.stats import metric_registry
+from code_robchar_tpu_torch.ops import cuda_jacobi, noise, prng
+
+#: elements per chunk on the CPU (keeps an x64 chunk's working set small)
+DEFAULT_CHUNK = 8192
+#: elements per chunk on CUDA: one kernel launch per chunk
+KERNEL_CHUNK = 131072
+
+RIM_NAME = r"$W(.,\delta(x-1))$"
+
+
+def _setup(h0, controllers, noises, key, device, chunk):
+    """Inputs as tensors on the resolved device, in h0's real dtype."""
+    device = config.resolve_device(device)
+    h0 = torch.as_tensor(h0, device=device)
+    h0r = (h0.real if h0.is_complex() else h0).contiguous()
+    ctrl = torch.as_tensor(controllers, device=device).to(h0r.dtype)
+    noises = torch.as_tensor(noises, device=device).to(h0r.dtype)
+    if chunk is None:
+        chunk = KERNEL_CHUNK if device.type == "cuda" else DEFAULT_CHUNK
+    return h0r, ctrl, noises, key.to(device), chunk
+
+
+def _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin, out_spin,
+          complex_offdiag):
+    """Fidelities of the lattice elements with flat ids ``ids``."""
+    num_c = ctrl.shape[0]
+    keys = prng.fold_in(key, ids)       # the flat id is the global id
+    cell = ids // bootreps
+    ar, ai, t = noise.assemble_lanes(h0r, ctrl[cell % num_c],
+                                     noises[cell // num_c], keys,
+                                     complex_offdiag)
+    return cuda_jacobi.fidelity_herm(ar, ai, t, in_spin, out_spin)
+
+
+def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
+                      bootreps: int, in_spin: int, out_spin: int,
+                      complex_offdiag: bool = True,
+                      chunk: Optional[int] = None,
+                      device=None) -> torch.Tensor:
+    """Fidelity-distribution tensor of shape (L, C, B).
+
+    h0: (n, n) drift Hamiltonian (its real part is used); controllers:
+    (C, n+1); noises: (L,); key: a prng key.  numpy or torch inputs;
+    ``device=None`` resolves as config.resolve_device.  The sweep at noise
+    level l uses sigma = noises[l] for every draw (mcsim.py:425)."""
+    h0r, ctrl, noises, key, chunk = _setup(h0, controllers, noises, key,
+                                           device, chunk)
+    num_l, num_c = noises.shape[0], ctrl.shape[0]
+    total = num_l * num_c * bootreps
+    out = torch.empty(total, dtype=h0r.dtype, device=h0r.device)
+    for start in range(0, total, chunk):
+        ids = torch.arange(start, min(start + chunk, total),
+                           device=h0r.device)
+        out[start:start + len(ids)] = _fids(h0r, ctrl, noises, key, ids,
+                                            bootreps, in_spin, out_spin,
+                                            complex_offdiag)
+    return out.reshape(num_l, num_c, bootreps)
+
+
+def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
+                    bootreps: int, in_spin: int, out_spin: int,
+                    complex_offdiag: bool = True,
+                    chunk: Optional[int] = None,
+                    alpha: float = 0.05,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Metric tensors (5 metrics x 3 DKW bands, each (L, C)) with the
+    reduction fused into the sweep: the same draws as
+    ``metric_tensors(mc_fidelity_sweep(...), alpha)``, without holding the
+    (L, C, B) fidelity tensor.  Each chunk holds whole cells, about
+    ``chunk`` elements."""
+    h0r, ctrl, noises, key, chunk = _setup(h0, controllers, noises, key,
+                                           device, chunk)
+    num_l, num_c = noises.shape[0], ctrl.shape[0]
+    cells = num_l * num_c
+    step = max(1, min(chunk // bootreps, cells)) * bootreps
+    total = cells * bootreps
+    parts = []
+    for start in range(0, total, step):
+        ids = torch.arange(start, min(start + step, total),
+                           device=h0r.device)
+        fids = _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin,
+                     out_spin, complex_offdiag)
+        parts.append(metric_tensors(fids.reshape(-1, bootreps), alpha))
+    return {k: torch.cat([p[k] for p in parts]).reshape(num_l, num_c)
+            for k in parts[0]}
+
+
+def _rim_sortless(fids: torch.Tensor) -> torch.Tensor:
+    # W1(F, delta_1) = E[1 - F] for F in [0, 1]: no sort needed
+    return torch.mean(1.0 - fids, dim=-1)
+
+
+def metric_tensors(fids, alpha: float = 0.05) -> Dict[str, torch.Tensor]:
+    """All five metrics x {center, upper, lower} over the trailing axis.
+
+    Key names follow the .mcm schema (mcsim.py:487-498), including the
+    reference's band-naming inversion: "upper" is computed from
+    fids - dkw and "lower" from fids + dkw, because the ideal sits at
+    fidelity 1 (mcsim.py:483-485).  The RIM uses the sortless identity
+    W1(F, delta(x-1)) = mean(1 - F)."""
+    fids = torch.as_tensor(fids)
+    eps = compute_dkw_error(alpha, fids.shape[-1])
+    shifted_lower = torch.clamp(fids + eps, 0.0, 1.0)
+    shifted_upper = torch.clamp(fids - eps, 0.0, 1.0)
+    registry = dict(metric_registry)
+    registry[RIM_NAME] = _rim_sortless
+    out = {}
+    for name, fn in registry.items():
+        out[name] = fn(fids)
+        out[name + " upper"] = fn(shifted_upper)
+        out[name + " lower"] = fn(shifted_lower)
+    return out
+
+
+def characterise(h0, controllers, noises, key: torch.Tensor, bootreps: int,
+                 in_spin: int, out_spin: int, *, alpha: float = 0.05,
+                 complex_offdiag: bool = True, chunk: Optional[int] = None,
+                 return_fids: bool = True,
+                 device=None) -> Dict[str, torch.Tensor]:
+    """One-call robustness characterisation: the five-metric x three-band
+    tensor dict, plus the (L, C, B) ``fids`` when ``return_fids``.
+    ``return_fids=False`` takes the fused sweep (mc_metric_sweep): the same
+    metric values without holding the fidelity tensor."""
+    kwargs = dict(complex_offdiag=complex_offdiag, chunk=chunk,
+                  device=device)
+    if not return_fids:
+        return mc_metric_sweep(h0, controllers, noises, key, bootreps,
+                               in_spin, out_spin, alpha=alpha, **kwargs)
+    fids = mc_fidelity_sweep(h0, controllers, noises, key, bootreps,
+                             in_spin, out_spin, **kwargs)
+    out = metric_tensors(fids, alpha)
+    out["fids"] = fids
+    return out
+
+
+def arim_from_rims(rims) -> torch.Tensor:
+    """Algorithm-level RIM: W1 of the trailing-axis RIM sample (over
+    controllers) from delta(x-0) (generate_arim_all_fig5.py:119,166)."""
+    return wd_from_ideal_zero(torch.clamp(torch.as_tensor(rims), 0.0, 1.0))

@@ -1,0 +1,30 @@
+"""Robustness metrics: RIM / Wasserstein reductions, DKW bands, the
+metric registry."""
+
+from code_robchar_tpu_torch.metrics.rim import (
+    wd_from_ideal,
+    wd_from_ideal_zero,
+    rim_p,
+    compute_dkw_error,
+    dkw_ecdf_bounds,
+)
+from code_robchar_tpu_torch.metrics.stats import (
+    quantile_yield,
+    metric_registry,
+)
+
+# Reference-compatible aliases (wd_sortof_fast_implementation.py exports).
+RIM_p = rim_p
+Q = quantile_yield
+
+__all__ = [
+    "wd_from_ideal",
+    "wd_from_ideal_zero",
+    "rim_p",
+    "RIM_p",
+    "compute_dkw_error",
+    "dkw_ecdf_bounds",
+    "quantile_yield",
+    "Q",
+    "metric_registry",
+]
