@@ -6,18 +6,22 @@ obvious counterpart, and is held against it by the ``tests/test_torch_*``
 parity suite on the CPU.  It imports ``torch`` and numpy only — never jax,
 never the JAX package.
 
-Layout (the Monte-Carlo characterisation slice):
+Layout (the Monte-Carlo characterisation slice and the optimizer zoo's
+L-BFGS and Nelder-Mead slice):
 
 - ``config``   dtype helpers, the device resolver, TF32 off
 - ``ops``      counter-based threefry PRNG (``prng``), chain Hamiltonians
-               (``chain``), structured noise and the lanes-layout assembly
-               (``noise``), the plain Jacobi transfer fidelity
-               (``realform``) and its hand-written CUDA kernel binding
-               (``cuda_jacobi``)
+               (``chain``), structured noise, the lanes-layout assembly
+               and the fixed ensembles (``noise``), the plain Jacobi
+               solvers, amplitudes and exact gradient (``realform``), the
+               hand-written CUDA kernels' binding and dispatch
+               (``cuda_jacobi``), Sobol restart streams (``sobol``)
 - ``metrics``  RIM / Wasserstein metrics, DKW bands, the metric registry
 - ``mc``       the chunked Monte-Carlo sweep and its fused metric reduction
-- ``utils``    the nvcc build of ``csrc/*.cu`` and its ctypes loader
-- ``csrc``     CUDA C++ kernel sources (sm_90a)
+- ``models``   the zoo's batched objectives, run loop, L-BFGS and NMPlus
+- ``utils``    the nvcc build of ``csrc/*.cu`` and its ctypes loader, the
+               record protocol, deadlines, JSON IO
+- ``csrc``     CUDA C++ kernel sources (sm_90a) and their shared header
 """
 
 __version__ = "0.1.0"

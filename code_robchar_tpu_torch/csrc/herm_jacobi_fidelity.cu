@@ -36,31 +36,13 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <utility>
+
+#include "jacobi_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
-__host__ __device__ constexpr int tri(int i, int j) {
-  // packed index of the strictly-lower entry (i, j), i > j
-  return i * (i - 1) / 2 + j;
-}
-
-// Circle-method tournament of code_robchar_tpu/ops/pallas_jacobi.py
-// pair_schedule: M players (n plus a bye when n is odd), M - 1 stages of
-// M / 2 slots; after s rotations, slot position j >= 1 holds player
-// 1 + ((j - 1 - s) mod (M - 1)).  Slot k of stage s pairs positions k and
-// M - 1 - k; a pair with the bye (player n) is skipped.
-template <int N>
-struct Schedule {
-  static constexpr int M = N + (N & 1);
-  static constexpr int kStages = M - 1;
-  static constexpr int kSlots = M / 2;
-  __host__ __device__ static constexpr int player(int s, int j) {
-    return j == 0 ? 0 : 1 + ((j - 1 - s) % (M - 1) + (M - 1)) % (M - 1);
-  }
-};
+using jacobi::kThreads;
+using jacobi::tri;
 
 template <int N>
 struct Herm {
@@ -69,6 +51,9 @@ struct Herm {
   float li[N * (N - 1) / 2];   // Im A[i][j], i > j
   float vr[2][N];              // rows in, out of V (real)
   float vi[2][N];              // rows in, out of V (imaginary)
+
+  template <int P, int Q>
+  __device__ __forceinline__ void rotate(float eps);
 };
 
 // A[i][j], i != j, from the lower triangle (upper = conjugate mirror)
@@ -97,8 +82,10 @@ __device__ __forceinline__ void set(Herm<N>& h, int i, int j, float re,
   }
 }
 
-template <int N, int P, int Q>
-__device__ __forceinline__ void rotate(Herm<N>& h, float eps) {
+template <int N>
+template <int P, int Q>
+__device__ __forceinline__ void Herm<N>::rotate(float eps) {
+  Herm<N>& h = *this;
   static_assert(0 <= P && P < Q && Q < N, "pivot out of range");
   const float app = h.d[P];
   const float aqq = h.d[Q];
@@ -164,25 +151,6 @@ __device__ __forceinline__ void rotate(Herm<N>& h, float eps) {
   }
 }
 
-template <int N, int K>
-__device__ __forceinline__ void slot(Herm<N>& h, float eps) {
-  using S = Schedule<N>;
-  constexpr int s = K / S::kSlots;
-  constexpr int k = K % S::kSlots;
-  constexpr int a = S::player(s, k);
-  constexpr int b = S::player(s, S::M - 1 - k);
-  if constexpr (a < N && b < N) {
-    rotate<N, (a < b ? a : b), (a < b ? b : a)>(h, eps);
-  }
-}
-
-// one sweep: every slot of every stage, in schedule order
-template <int N, int... K>
-__device__ __forceinline__ void sweep(Herm<N>& h, float eps,
-                                      std::integer_sequence<int, K...>) {
-  (slot<N, K>(h, eps), ...);
-}
-
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 herm_jacobi_fidelity_kernel(const float* __restrict__ ar,
@@ -211,11 +179,7 @@ herm_jacobi_fidelity_kernel(const float* __restrict__ ar,
     h.vi[1][k] = 0.0f;
   }
 
-  using S = Schedule<N>;
-#pragma unroll 1
-  for (int sw = 0; sw < sweeps; ++sw) {
-    sweep<N>(h, eps, std::make_integer_sequence<int, S::kStages * S::kSlots>{});
-  }
+  jacobi::jacobi_sweeps<N>(h, sweeps, eps);
 
   // phi = sum_k V[out,k] e^{-i t lam_k} conj(V[in,k])
   const float tb = t[b];

@@ -1,0 +1,204 @@
+"""Batched objective builders shared by the optimizer zoo (counterpart of
+code_robchar_tpu/models/objectives.py, its lanes-batch half).
+
+The reference builds per-optimizer ``infidelity`` closures over four noise
+regimes (qnewton.py:383-455, 500-514).  Here each regime is one function
+``(xs (K, d), key) -> (infids (K,), fcalls (K,))`` over a batch of
+controllers, with the same draws as the JAX package for the same key:
+
+- noiseless:        1 - |<out|U|in>|^2, and the exact gradient
+                    (``make_exact_gradient_batch``, the gradient kernel);
+- ham_noisy:        a fresh real-offdiagonal structured perturbation per
+                    controller, its key folded from the lane index
+                    (``_structured_draws_lanes``);
+- use_fixed_ham:    the mean fidelity over a pre-drawn ensemble;
+- fid_noisy:        binomial shot noise — not ported yet: it needs a port
+                    of ``jax.random.binomial`` (ROADMAP item 9), so these
+                    builders raise ``NotImplementedError`` for it.
+
+Every fidelity goes through ops/cuda_jacobi: the CUDA kernels for CUDA
+tensors, their plain versions for CPU ones.  Keys are prng keys; they may
+lie on the CPU while the batch lies on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from code_robchar_tpu_torch.metrics.rim import wd_from_ideal
+from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+
+
+class ObjectiveSpec(NamedTuple):
+    h0: torch.Tensor                # (n, n) real drift
+    in_spin: int
+    out_spin: int
+    noise: float                    # sigma for ham noise
+    fid_noisy: bool
+    ham_noisy: bool
+    draws: int
+    adaptive: bool
+    adp_tol: float
+    fixed_hams: Optional[torch.Tensor]  # (R, n, n) pre-perturbed ensemble
+    mul_fac: int                    # fcall multiplier (train_size or 1)
+
+
+def _refuse_shot_noise(spec: ObjectiveSpec) -> None:
+    if spec.fid_noisy:
+        raise NotImplementedError(
+            "fid_noisy (binomial shot noise, incl. the adaptive protocol) is "
+            "not ported yet: it needs a port of jax.random.binomial "
+            "(ROADMAP item 9)")
+
+
+def _real(h: torch.Tensor) -> torch.Tensor:
+    return (h.real if h.is_complex() else h).contiguous()
+
+
+def make_exact_gradient_batch(spec: ObjectiveSpec):
+    """(xs (K, d)) -> (errs (K,), grads (K, d)): the exact analytic
+    gradient of the noiseless objective, one launch of the gradient kernel
+    for the whole batch."""
+    h0r = _real(spec.h0)
+
+    def f(xs):
+        return cuda_jacobi.infidelity_and_gradient_sym(
+            h0r, xs.contiguous(), spec.in_spin, spec.out_spin)
+    return f
+
+
+def _make_fid_lanes(n: int, in_spin: int, out_spin: int):
+    """(a (n, n, B), t (B,)) -> fids (B,): the shared lanes fidelity, one
+    launch of the amplitude kernel."""
+    def fid_lanes(a, t):
+        return cuda_jacobi.fidelity_sym(a, t, in_spin, out_spin)
+    return fid_lanes
+
+
+def _assemble_lanes(h0r, xs, zdiag=None, znn=None):
+    """(n, n, K) lanes Hamiltonians: drift + per-lane diagonal controls
+    (+ optional pre-scaled structured-noise draws zdiag (K, n),
+    znn (K, n-1))."""
+    n = h0r.shape[-1]
+    k = xs.shape[0]
+    dt = h0r.dtype
+    a = h0r[:, :, None].expand(n, n, k).clone()
+    add_diag = xs[:, :n].T.to(dt)
+    if zdiag is not None:
+        add_diag = add_diag + zdiag.T
+    i = torch.arange(n, device=h0r.device)
+    a[i, i] = a[i, i] + add_diag
+    if znn is not None:
+        lo, hi = i[1:], i[:-1]
+        a[lo, hi] = a[lo, hi] + znn.T
+        a[hi, lo] = a[hi, lo] + znn.T
+    return a
+
+
+def fidelity_batch(h0r: torch.Tensor, xs: torch.Tensor, in_spin: int,
+                   out_spin: int) -> torch.Tensor:
+    """Noiseless fidelity of each controller of xs (K, n+1) under the
+    drift h0r (n, n): (K,)."""
+    n = h0r.shape[-1]
+    return cuda_jacobi.fidelity_sym(_assemble_lanes(h0r, xs),
+                                    xs[:, n].abs().to(h0r.dtype), in_spin,
+                                    out_spin)
+
+
+def ensemble_fidelities(hams: torch.Tensor, xs: torch.Tensor, in_spin: int,
+                        out_spin: int) -> torch.Tensor:
+    """Fidelity of each controller of xs (K, n+1) under each Hamiltonian of
+    the ensemble hams (R, n, n): (K, R), one lanes batch of K * R."""
+    n = hams.shape[-1]
+    k, r = xs.shape[0], hams.shape[0]
+    dt = hams.dtype
+    a = hams.permute(1, 2, 0)[:, :, None, :].expand(n, n, k, r).clone()
+    i = torch.arange(n, device=hams.device)
+    a[i, i] = a[i, i] + xs[:, :n].T.to(dt)[:, :, None]
+    t = xs[:, n].abs().to(dt).repeat_interleave(r)
+    return cuda_jacobi.fidelity_sym(a.reshape(n, n, k * r), t, in_spin,
+                                    out_spin).reshape(k, r)
+
+
+def _structured_draws_lanes(key, count, n, noise, dt, device):
+    """Per-lane real structured-noise draws (qnewton.py:366-379): one
+    (zdiag (count, n), znn (count, n-1)) pair per lane, keys folded from
+    the lane index with the reference's 3-way split and order (the third
+    stream, the complex-offdiagonal part, is unused by the real variant).
+    A width n-1 draw is the first n-1 entries of the width n draw under
+    the same key, so one threefry pass gives both."""
+    keys = prng.fold_in(key.to(device), torch.arange(count, device=device))
+    z = prng.normal(prng.split(keys, 3)[:, :2], (n,), dt)
+    return z[:, 0] * noise, z[:, 1, :n - 1] * noise
+
+
+def make_infidelity_batch(spec: ObjectiveSpec):
+    """(xs (K, d), key) -> (infids (K,), fcalls (K,)): the batched
+    objective of the noiseless, ham_noisy and fixed-ensemble regimes, with
+    the JAX package's key use (``kh, ks = split(key)``; ham noise from kh
+    folded with the lane index)."""
+    _refuse_shot_noise(spec)
+    n = spec.h0.shape[-1]
+    h0r = _real(spec.h0)
+    fixed = _real(spec.fixed_hams) if spec.fixed_hams is not None else None
+    fid_lanes = _make_fid_lanes(n, spec.in_spin, spec.out_spin)
+
+    def infid(xs, key):
+        k = xs.shape[0]
+        calls = torch.ones(k, dtype=torch.int32, device=xs.device)
+        if fixed is not None:
+            # mean FIDELITY over the pre-drawn ensemble (qnewton.py:425-444)
+            fids = ensemble_fidelities(fixed, xs, spec.in_spin, spec.out_spin)
+            return 1.0 - fids.sum(1) / fids.shape[1], calls
+        zdiag = znn = None
+        if spec.ham_noisy:
+            kh = prng.split(key)[0]
+            zdiag, znn = _structured_draws_lanes(kh, k, n, spec.noise,
+                                                 h0r.dtype, xs.device)
+        a = _assemble_lanes(h0r, xs, zdiag, znn)
+        return 1.0 - fid_lanes(a, xs[:, n].abs().to(h0r.dtype)), calls
+
+    return infid
+
+
+def make_fd_gradient_batch(infid_batch_fn, dim: int, eps: float = 1e-8):
+    """Batched forward-difference gradient: (xs (K, d), key) ->
+    (f0 (K,), g (K, d), fcalls (K,)).  All K*(d+1) probes ride one lanes
+    batch; one gradient costs d+1 objective calls (qnewton.py:513-514)."""
+    def grad(xs, key):
+        k = xs.shape[0]
+        eye = torch.eye(dim, dtype=xs.dtype, device=xs.device)
+        probes = torch.cat([xs[:, None, :], xs[:, None, :] + eps * eye[None]],
+                           dim=1)                         # (K, d+1, d)
+        fs, cs = infid_batch_fn(probes.reshape(k * (dim + 1), dim), key)
+        fs = fs.reshape(k, dim + 1)
+        f0 = fs[:, 0]
+        g = (fs[:, 1:] - f0[:, None]) / eps
+        return f0, g, cs.reshape(k, dim + 1).sum(1).to(torch.int32)
+    return grad
+
+
+def make_wass_cost_batch(spec: ObjectiveSpec, bootstrap_reps: int = 5):
+    """(xs (K, d), key) -> (costs (K,), fcalls (K,)): the Wasserstein
+    robustness cost (qnewton.py:447-455), RIM_1 of ``bootstrap_reps``
+    ham-noisy fidelities per controller, each call billed
+    ``bootstrap_reps`` function calls.  All K * reps probes ride one lanes
+    batch."""
+    n = spec.h0.shape[-1]
+    h0r = _real(spec.h0)
+    fid_lanes = _make_fid_lanes(n, spec.in_spin, spec.out_spin)
+
+    def cost(xs, key):
+        k = xs.shape[0]
+        dt = h0r.dtype
+        zdiag, znn = _structured_draws_lanes(key, k * bootstrap_reps, n,
+                                             spec.noise, dt, xs.device)
+        xr = xs.repeat_interleave(bootstrap_reps, dim=0)      # (K*R, d)
+        a = _assemble_lanes(h0r, xr, zdiag, znn)
+        fids = fid_lanes(a, xr[:, n].abs().to(dt))
+        fids = fids.clamp(0.0, 1.0).reshape(k, bootstrap_reps)
+        return wd_from_ideal(fids), torch.full(
+            (k,), bootstrap_reps, dtype=torch.int32, device=xs.device)
+    return cost

@@ -1,5 +1,5 @@
 """Numeric ops: threefry PRNG, chain Hamiltonians, structured noise, the
-plain Jacobi transfer fidelity and its CUDA kernel."""
+plain Jacobi solvers and their CUDA kernels."""
 
 from code_robchar_tpu_torch.ops.chain import (
     xx_hamiltonian,
@@ -12,9 +12,23 @@ from code_robchar_tpu_torch.ops.noise import (
     structured_perturbation,
     structured_perturbation_parts,
     assemble_lanes,
+    fixed_hamiltonian_ensemble,
 )
-from code_robchar_tpu_torch.ops.realform import fidelity_herm_lanes
-from code_robchar_tpu_torch.ops.cuda_jacobi import fidelity_herm
+from code_robchar_tpu_torch.ops.realform import (
+    fidelity_herm_lanes,
+    transfer_amp_sym_lanes,
+    fidelity_sym_lanes,
+    jacobi_eigh_sym_lanes,
+    infidelity_and_gradient_sym_lanes,
+    jacobi_eigh_sym,
+    fidelity_from_controller_sym,
+    infidelity_and_gradient_sym,
+)
+from code_robchar_tpu_torch.ops.cuda_jacobi import (
+    fidelity_herm,
+    transfer_amp_sym,
+    fidelity_sym,
+)
 
 __all__ = [
     "xx_hamiltonian",
@@ -25,6 +39,16 @@ __all__ = [
     "structured_perturbation",
     "structured_perturbation_parts",
     "assemble_lanes",
+    "fixed_hamiltonian_ensemble",
     "fidelity_herm_lanes",
+    "transfer_amp_sym_lanes",
+    "fidelity_sym_lanes",
+    "jacobi_eigh_sym_lanes",
+    "infidelity_and_gradient_sym_lanes",
+    "jacobi_eigh_sym",
+    "fidelity_from_controller_sym",
+    "infidelity_and_gradient_sym",
     "fidelity_herm",
+    "transfer_amp_sym",
+    "fidelity_sym",
 ]

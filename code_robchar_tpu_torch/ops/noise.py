@@ -96,3 +96,23 @@ def assemble_lanes(h0r: torch.Tensor, xs: torch.Tensor, scales: torch.Tensor,
         ai[lo, hi] = nn2.T
         ai[hi, lo] = -nn2.T
     return ar, ai, xs[:, n].abs()
+
+
+def fixed_hamiltonian_ensemble(key: torch.Tensor, h0: torch.Tensor, scale,
+                               train_size: int = 100, test_size: int = 10000,
+                               complex_offdiag: bool = False):
+    """Pre-drawn perturbed-Hamiltonian train and test sets of the
+    fixed-ensemble objective (qnewton.py:122-137): (train (train_size, n, n),
+    test (test_size, n, n)), each h0 + structured_perturbation.  The
+    reference's seed contract is ``key = prng.key(4)``; the two sets come
+    from ``split(key)`` and then ``split(k, size)``, as in the JAX
+    package, so the same key gives the same ensembles."""
+    n = h0.shape[-1]
+    k1, k2 = prng.split(key.to(h0.device))
+
+    def draw(k, size):
+        return h0 + structured_perturbation(
+            prng.split(k, size), n, scale, complex_offdiag=complex_offdiag,
+            dtype=h0.dtype)
+
+    return draw(k1, train_size), draw(k2, test_size)

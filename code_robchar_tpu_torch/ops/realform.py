@@ -1,29 +1,47 @@
-"""Plain torch transfer fidelity by split-complex Jacobi, lanes layout
-(counterpart of code_robchar_tpu/ops/realform.py, Hermitian lanes path).
+"""Plain torch Jacobi eigensolvers, transfer amplitudes and the exact
+gradient, lanes layout (counterpart of code_robchar_tpu/ops/realform.py).
 
-This is the plain version of the CUDA kernel in ops/cuda_jacobi.py: the
-CPU path of the dispatch, the f64 parity path of the tests, and what
-the kernel is held against on the card.  Arrays keep the JAX package's
-lanes layout — the batch last, ``ar``/``ai`` of shape (n, n, B) — and
-every operation is vectorised over the batch.
+These are the plain versions of the CUDA kernels in ops/cuda_jacobi.py:
+the CPU path of the dispatch, the f64 parity path of the tests, and what
+the kernels are held against on the card.  Arrays keep the JAX package's
+lanes layout — the batch last, matrices of shape (n, n, B) — and every
+operation is vectorised over the batch.
 
-Each pivot (p, q) is the symmetric update of ``_herm_rotate_lanes`` and
-``pallas_jacobi._rotation_body``: only columns p, q are rotated, rows
-p, q are their conjugate mirrors, and the 2x2 pivot block is closed-form
-(A'[p,q] = 0, A'[p,p] = app - t|apq|, A'[q,q] = aqq + t|apq|).  Only the
-in and out eigenvector rows are carried, and the amplitude is
-phi = sum_k V[out,k] e^{-i t lam_k} conj(V[in,k]).
+Two halves:
 
-``order="cyclic"`` is the row-major pivot order of JAX
-``realform.fidelity_herm_lanes``; ``order="roundrobin"`` is the
-circle-method stage order of the Pallas kernel (and of the CUDA kernel),
-with each stage's angles computed before its rotations — exact, since a
-stage's pivots are disjoint.
+- split-complex Hermitian (the MC characterisation path):
+  ``fidelity_herm_lanes``.  Each pivot (p, q) is the symmetric update of
+  ``_herm_rotate_lanes`` and ``pallas_jacobi._rotation_body``: only columns
+  p, q are rotated, rows p, q are their conjugate mirrors, and the 2x2
+  pivot block is closed-form (A'[p,q] = 0, A'[p,p] = app - t|apq|,
+  A'[q,q] = aqq + t|apq|).  Only the in and out eigenvector rows are
+  carried, and phi = sum_k V[out,k] e^{-i t lam_k} conj(V[in,k]).
+- real symmetric (the optimizer zoo's training path):
+  ``jacobi_eigh_sym_lanes``, ``transfer_amp_sym_lanes``,
+  ``fidelity_sym_lanes`` and ``infidelity_and_gradient_sym_lanes`` (the
+  Daleckii-Krein gradient in its sinc form), with the same symmetric
+  update as ``_sym_rotate_lanes`` and ``pallas_jacobi._sym_apply``; plus
+  the per-controller forms ``jacobi_eigh_sym``,
+  ``fidelity_from_controller_sym`` and ``infidelity_and_gradient_sym``,
+  which run through the lanes functions with the batch moved last.
+
+``order="cyclic"`` is the row-major pivot order of the JAX lanes
+functions; ``order="roundrobin"`` is the circle-method stage order of the
+Pallas kernels (and of the CUDA kernels), with each stage's angles
+computed before its rotations — exact, since a stage's pivots are
+disjoint.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _sinc(x: torch.Tensor) -> torch.Tensor:
+    """sin(x)/x, stable through x = 0 (series below |x| < 1e-3)."""
+    small = x.abs() < 1e-3
+    xs = torch.where(small, torch.ones_like(x), x)
+    return torch.where(small, 1.0 - x * x * (1.0 / 6.0), torch.sin(xs) / xs)
 
 
 def _sweeps_for(dtype: torch.dtype, n: int) -> int:
@@ -158,3 +176,208 @@ def fidelity_herm_lanes(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
         phr = phr + gr * fr - gi * fi
         phi = phi + gr * fi + gi * fr
     return phr * phr + phi * phi
+
+
+# --------------------------------------------------------------------------
+# real symmetric half (the optimizer zoo's training path)
+# --------------------------------------------------------------------------
+
+def _sym_angles(a, p, q, eps):
+    """Rotation for pivot (p, q) of a real symmetric lanes matrix
+    (``pallas_jacobi._sym_angles``; inactive lanes get the identity).  The
+    pivot entries are returned as views, which only the rotation at (p, q)
+    overwrites."""
+    app, aqq, apq = a[p, p], a[q, q], a[p, q]
+    r = apq.abs()
+    active = r > eps * (app.abs() + aqq.abs() + r)
+    safe = torch.where(active, apq, 1.0)
+    tau = (aqq - app) / (2.0 * safe)
+    t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(tau == 0.0, 1.0, t)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    s = t * c
+    c = torch.where(active, c, 1.0)
+    s = torch.where(active, s, 0.0)
+    t_eff = torch.where(active, t, 0.0)
+    return c, s, t_eff, apq, app, aqq, active
+
+
+def _sym_apply(a, v, p, q, ang):
+    """Symmetric-update rotation at pivot (p, q), in place
+    (``_sym_rotate_lanes``): rotate columns p, q, mirror them into rows
+    p, q, write the pivot block in closed form, rotate the carried rows
+    ``v`` (R, n, B)."""
+    c, s, t_eff, apq, app, aqq, active = ang
+    npp = app - t_eff * apq          # the pivot block, before its entries
+    nqq = aqq + t_eff * apq          # are overwritten below
+    z = torch.where(active, 0.0, apq)
+    cp, cq = a[:, p], a[:, q]
+    ncp = c * cp - s * cq
+    ncq = s * cp + c * cq
+    a[:, p], a[:, q] = ncp, ncq
+    a[p], a[q] = ncp, ncq
+    a[p, p], a[q, q] = npp, nqq
+    a[p, q], a[q, p] = z, z
+    wp, wq = v[:, p], v[:, q]
+    nwp = c * wp - s * wq
+    nwq = s * wp + c * wq
+    v[:, p], v[:, q] = nwp, nwq
+
+
+def _sym_sweeps(a, v, sweeps, order):
+    """``sweeps`` Jacobi sweeps on ``a`` (n, n, B), in place, carrying the
+    eigenvector rows ``v`` (R, n, B)."""
+    eps = _eps_for(a.dtype)
+    schedule = pair_schedule(a.shape[0], order)
+    for _ in range(sweeps):
+        for stage in schedule:
+            angs = [_sym_angles(a, p, q, eps) for (p, q) in stage]
+            for (p, q), ang in zip(stage, angs):
+                _sym_apply(a, v, p, q, ang)
+
+
+def jacobi_eigh_sym_lanes(a: torch.Tensor, sweeps: int | None = None,
+                          order: str = "roundrobin"):
+    """Full eigendecomposition of real symmetric lanes matrices: a (n, n, B)
+    -> (lam (n, B) unsorted, v (n, n, B)) with v[r, k] the r-th component
+    of eigenvector k, A = V diag(lam) V^T.  The input is not modified."""
+    n, b = a.shape[0], a.shape[-1]
+    if sweeps is None:
+        sweeps = _sweeps_for(a.dtype, n)
+    a = a.clone()
+    v = torch.eye(n, dtype=a.dtype, device=a.device)[:, :, None] \
+        .expand(n, n, b).clone()
+    _sym_sweeps(a, v, sweeps, order)
+    idx = torch.arange(n, device=a.device)
+    return a[idx, idx], v
+
+
+def transfer_amp_sym_lanes(a: torch.Tensor, t: torch.Tensor, in_spin: int,
+                           out_spin: int, sweeps: int | None = None,
+                           order: str = "roundrobin"):
+    """Split transfer amplitude <out| exp(-i t A) |in> for real symmetric
+    lanes matrices: a (n, n, B), t (B,) -> (phr, phi), each (B,).  Only the
+    in and out eigenvector rows are carried.  The inputs are not
+    modified."""
+    n, b = a.shape[0], a.shape[-1]
+    if sweeps is None:
+        sweeps = _sweeps_for(a.dtype, n)
+    a = a.clone()
+    v = torch.zeros((2, n, b), dtype=a.dtype, device=a.device)
+    v[0, in_spin] = 1.0
+    v[1, out_spin] = 1.0
+    _sym_sweeps(a, v, sweeps, order)
+    phr = torch.zeros_like(t)
+    phi = torch.zeros_like(t)
+    for k in range(n):
+        w = v[0, k] * v[1, k]
+        ang = a[k, k] * t
+        phr = phr + w * torch.cos(ang)
+        phi = phi - w * torch.sin(ang)
+    return phr, phi
+
+
+def fidelity_sym_lanes(a: torch.Tensor, t: torch.Tensor, in_spin: int,
+                       out_spin: int, sweeps: int | None = None,
+                       order: str = "roundrobin") -> torch.Tensor:
+    """Batched |<out| exp(-i t A) |in>|^2, real symmetric lanes layout:
+    a (n, n, B), t (B,) -> (B,)."""
+    phr, phi = transfer_amp_sym_lanes(a, t, in_spin, out_spin, sweeps, order)
+    return phr * phr + phi * phi
+
+
+def infidelity_and_gradient_sym_lanes(h0: torch.Tensor, xs: torch.Tensor,
+                                      in_spin: int, out_spin: int,
+                                      sweeps: int | None = None,
+                                      order: str = "roundrobin"):
+    """Batched exact (infidelity, gradient): h0 (n, n) real symmetric drift,
+    xs (B, n+1) controllers (biases, then the time T = |x[n]|) ->
+    (err (B,), grad (B, n+1)).
+
+    err = 1 - |phi|^2; the gradient w.r.t. the biases is the
+    Daleckii-Krein contraction with the split matrix
+    Gamma_jk = -i t e^{-i t (l_j + l_k)/2} sinc(t (l_j - l_k)/2), which has
+    no cancellation at any eigenvalue gap (``realform._gamma_parts``); the
+    one w.r.t. T is -2 Im((H U)[out, in] conj(phi))."""
+    n = h0.shape[-1]
+    b = xs.shape[0]
+    dt = h0.dtype
+    biases = xs[:, :n].to(dt)
+    t = xs[:, n].abs().to(dt)
+    a = h0[:, :, None].expand(n, n, b).clone()
+    idx = torch.arange(n, device=h0.device)
+    a[idx, idx] = a[idx, idx] + biases.T
+    lam, v = jacobi_eigh_sym_lanes(a, sweeps, order)
+
+    v_out, v_in = v[out_spin], v[in_spin]                   # (n, B)
+    w = v_out * v_in
+    ang = lam * t
+    fr, fi = torch.cos(ang), -torch.sin(ang)
+    phr = (w * fr).sum(0)
+    phi = (w * fi).sum(0)
+    err = 1.0 - (phr * phr + phi * phi)
+
+    dl = lam[:, None, :] - lam[None, :, :]
+    mid = 0.5 * (lam[:, None, :] + lam[None, :, :])
+    mang = mid * t
+    s = _sinc(0.5 * dl * t)
+    gr = -t * s * torch.sin(mang)
+    gi = -t * s * torch.cos(mang)
+    a_lj = v_out[None] * v                                  # (l, j, B)
+    b_lk = v * v_in[None]                                   # (l, k, B)
+    dphr = torch.einsum("ljb,jkb,lkb->lb", a_lj, gr, b_lk)
+    dphi = torch.einsum("ljb,jkb,lkb->lb", a_lj, gi, b_lk)
+    grad_bias = -2.0 * (dphr * phr + dphi * phi)
+
+    hur = (lam * w * fr).sum(0)
+    hui = (lam * w * fi).sum(0)
+    grad_t = -2.0 * (hui * phr - hur * phi)
+    return err, torch.cat([grad_bias.T, grad_t[:, None]], dim=1)
+
+
+def _to_lanes(m: torch.Tensor) -> torch.Tensor:
+    """(..., n, n) -> (n, n, prod(...)) with the batch last."""
+    n = m.shape[-1]
+    return m.reshape(-1, n, n).permute(1, 2, 0).contiguous()
+
+
+def jacobi_eigh_sym(a: torch.Tensor, sweeps: int | None = None):
+    """Eigendecomposition of real symmetric (..., n, n), cyclic order, as
+    JAX ``realform.jacobi_eigh_sym``: (lam (..., n) ascending,
+    v (..., n, n)) with the eigenvectors as columns."""
+    n = a.shape[-1]
+    lead = a.shape[:-2]
+    lam, v = jacobi_eigh_sym_lanes(_to_lanes(a), sweeps, order="cyclic")
+    lam = lam.T.reshape(lead + (n,))
+    v = v.permute(2, 0, 1).reshape(lead + (n, n))
+    srt = torch.argsort(lam, dim=-1, stable=True)
+    return (torch.take_along_dim(lam, srt, dim=-1),
+            torch.take_along_dim(v, srt[..., None, :], dim=-1))
+
+
+def fidelity_from_controller_sym(h0: torch.Tensor, x: torch.Tensor,
+                                 in_spin: int, out_spin: int) -> torch.Tensor:
+    """The reference objective contract, H = H0 + diag(x[:n]) and
+    T = |x[n]|, on the real symmetric path (cyclic order): h0 (..., n, n)
+    and x (..., n+1) broadcast; returns the fidelity of shape (...)."""
+    n = h0.shape[-1]
+    h = h0 + torch.eye(n, dtype=h0.dtype, device=h0.device) \
+        * x[..., None, :n].to(h0.dtype)
+    t = x[..., n].abs().to(h0.dtype)
+    lead = torch.broadcast_shapes(h.shape[:-2], t.shape)
+    h = h.expand(lead + (n, n))
+    fid = fidelity_sym_lanes(_to_lanes(h), t.expand(lead).reshape(-1),
+                             in_spin, out_spin, order="cyclic")
+    return fid.reshape(lead)
+
+
+def infidelity_and_gradient_sym(h0: torch.Tensor, x: torch.Tensor,
+                                in_spin: int, out_spin: int):
+    """Exact (infidelity, gradient) for one controller x (n+1,) or a batch
+    (..., n+1) under the drift h0 (n, n), cyclic order:
+    (err (...), grad (..., n+1))."""
+    n = h0.shape[-1]
+    lead = x.shape[:-1]
+    err, grad = infidelity_and_gradient_sym_lanes(
+        h0, x.reshape(-1, n + 1), in_spin, out_spin, order="cyclic")
+    return err.reshape(lead), grad.reshape(lead + (n + 1,))

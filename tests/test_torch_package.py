@@ -22,7 +22,8 @@ PORT = os.path.join(REPO, "code_robchar_tpu_torch")
 def test_import_pulls_in_no_jax():
     code = ("import sys\n"
             "import code_robchar_tpu_torch, code_robchar_tpu_torch.mc, "
-            "code_robchar_tpu_torch.ops, code_robchar_tpu_torch.metrics\n"
+            "code_robchar_tpu_torch.ops, code_robchar_tpu_torch.metrics, "
+            "code_robchar_tpu_torch.models\n"
             "from code_robchar_tpu_torch.ops import cuda_jacobi, prng\n"
             "from code_robchar_tpu_torch.utils import build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -38,7 +39,8 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import|from) (jax|code_robchar_tpu)\b")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "profile_zoo.py")]
     for root, dirs, names in os.walk(PORT):
         dirs[:] = [d for d in dirs if d != "build"]     # compiler output
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
@@ -188,3 +190,38 @@ def test_kernel_input_checks(bad):
     cuda_jacobi._check(*_kernel_inputs(), 0, 3)      # the good case passes
     with pytest.raises(ValueError):
         cuda_jacobi._check(ar, ai, t, *spins)
+
+
+def test_build_hash_covers_headers_and_compiles_each_source(monkeypatch,
+                                                            tmp_path):
+    """An edited shared header must build a new library (the name carries
+    the hash of csrc/*.cu and csrc/*.cuh), each .cu is compiled by its own
+    nvcc call and the objects are linked once."""
+    body = ('echo "$@" >> "$(dirname "$0")/calls"\n'
+            'while [ "$1" != "-o" ]; do shift; done\n'
+            'echo stub > "$2"\n')
+    bindir = _fake_nvcc(tmp_path, body)
+    _isolate_build(monkeypatch, tmp_path, [bindir, "/bin", "/usr/bin"])
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    first = build.build()
+    calls = (tmp_path / "bin" / "calls").read_text().splitlines()
+    assert sum(" -c " in c for c in calls) == 2
+    assert sum(" -shared " in c for c in calls) == 1
+    assert build.build().cached
+    (csrc / "common.cuh").write_text("// v2\n")
+    second = build.build()
+    assert not second.cached and second.path != first.path
+    assert os.listdir(build.BUILD_DIR) and not any(
+        f.endswith(".tmp") for f in os.listdir(build.BUILD_DIR))
+
+
+def test_package_data_ships_the_headers():
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        text = f.read()
+    assert '"csrc/*.cuh"' in text and '"csrc/*.cu"' in text
+    assert os.path.exists(os.path.join(PORT, "csrc", "jacobi_common.cuh"))
