@@ -67,8 +67,54 @@ Phases:
    restarts within 1e-3.  Over whole runs it prints how many restarts end
    apart, beside the same count for the plain versions on the card and for
    starts moved by one ulp on either device (not gated).
-7. the kernels JSON line, then {"ok": true, "device": {...}} as the last
-   line.
+7. PPO kernels vs plain (N=7, h=100, float32, weights from the port's
+   init, carries near the wrap bounds): the rollout kernel against its
+   plain version on the card at A = 1024 and a ragged 1000, T = 64,
+   ham_noisy on and off, max_ep_len 40 < T, and at the path's shapes
+   (A = 1024, T = 500, max_ep_len 1000, ham_noisy); bar 1e-4 on actions,
+   fidelities and obs, step by step: each plain step starts from the
+   kernel's own carry, since free-running trajectories amplify rounding
+   through the accumulated action (at T = 64 that parting is printed
+   beside the plain version against itself with the carry one ulp up).
+   Agents whose raw action or time comes within 1e-5 of a wrap boundary
+   may part (a rounding-level difference picks the other branch); they
+   are counted, and the phase fails if any other agent parts or more than
+   1% do.  The critic kernel against its plain version at A = 1024,
+   T = 500, iters = 7 and 200 (the path's count) at test_pallas's bars
+   (atol 2e-6 + rtol 1e-5; an element past them must stay within 2 lr
+   iters, the step Adam takes when a gradient within rounding of zero
+   flips sign, and such elements may be at most the share CRITIC_SHARE
+   gives of all).  Then both timed with CUDA events at the path's shapes
+   (rollout A = 1024, T = 500, sweeps 4, ham_noisy; critic A = 1024,
+   T = 500, iters 200) against their plain versions.
+8. PPO path at full width, the bench.py configuration: PPO_en(7, 0, 6,
+   ham_noisy, 1024 agents, rollout_sweeps 4, float32 on the card), epochs
+   of 500 steps with 200 / 200 pi / v iterations and target_kl 0.01; two
+   warm-up and three timed epochs.  Prints env-steps/s, the epoch split by
+   CUDA events (rollout, true fid, values + logps + GAE, pi loop, critic),
+   mean pi_iters and the launches of kernels 3, 4 and 5 over the five
+   epochs (4 and 5 once per epoch; each must be > 0); rewards finite and in
+   [0, 1].
+9. PPO on the card beyond the timed path: one budget-mode run() (N=7, 64
+   agents, 100-step epochs, a 12800-fcall budget) must end with a
+   non-empty record["controllers"] and func_calls + 1 >= 12800; and one
+   epoch at N=4, 256 agents, T=64 through the kernels on the card against
+   the plain versions on the CPU (float32) from one state: the first 16
+   steps' rewards within 1e-4 on at least 99% of the agents.  Over the
+   whole epoch a rounding-level difference (the kernels differ from the
+   plain versions by ~4e-6 a step) is amplified through the accumulated
+   actions, as it is between two runs of the CPU whose carried actions
+   differ by 4e-6 (the witness): the agents apart by more than 1e-4 over
+   all 64 steps may be at most the witness's count or 1%, whichever is
+   more, plus 1%.
+10. the kernels JSON line (all five kernels: launches on their paths, the
+    max abs error against the plain version, ms and plain_ms from CUDA
+    events, bound_ms from this run's shapes and the hand counts of
+    artifacts/perf/roofline.py:56-99 against 67 TFLOP/s float32 and
+    3.35 TB/s, and library_ms: batched torch.linalg.eigh on the same
+    matrices for kernels 1-3, which computes the eigendecomposition only,
+    none for kernels 4 and 5), then {"ok": true, "device": {...}} as the
+    last line.
 """
 
 from __future__ import annotations
@@ -88,6 +134,59 @@ TOL_SLICE = 1e-3
 TOL_GRAD_ORACLE = 1e-4
 KS_GATE = 0.12
 ZOO_POOL = 8192
+#: the H100's float32 rate outside the tensor cores and its HBM rate (SXM
+#: part, 700 W)
+F32_PEAK = 67e12
+HBM_RATE = 3.35e12
+TOL_PPO = 1e-4
+PPO_AGENTS, PPO_STEPS = 1024, 500
+#: the critic kernel against its plain version: per iteration count, the
+#: largest share of elements (theta, mu, nu) past atol 2e-6 + rtol 1e-5
+CRITIC_SHARE = {7: 1e-5, 200: 1e-5}
+
+
+# hand counts per element of artifacts/perf/roofline.py:56-99 (sqrt,
+# division and tanh count one operation each)
+def _pairs(n):
+    return n * (n - 1) // 2
+
+
+def _sym_rot_flops(n, vrows):
+    return 27 + 6 * (n - 2) + 6 + 6 * vrows
+
+
+def _herm_flops(n, sweeps):
+    return sweeps * _pairs(n) * (34 + 26 * (n - 2) + 7 + 48) + 14 * n + 3
+
+
+def _amp_flops(n, sweeps):
+    return sweeps * _pairs(n) * _sym_rot_flops(n, 2) + 6 * n + 2
+
+
+def _grad_flops(n, sweeps):
+    return (sweeps * _pairs(n) * _sym_rot_flops(n, n) + 7 * n + 4
+            + 12 * n * n + n * n * (5 * n + 5) + 5 * n + 6 * n)
+
+
+def _rollout_step_flops(n, h, sweeps):
+    d = n + 1
+    return 2 * (d * h + h * h + h * d) + 2 * h + _amp_flops(n, sweeps) + 30
+
+
+def _critic_iter_flops(d1, h, t_len):
+    """One Adam iteration of one agent: 2 flops per multiply-add of the
+    forward and backward products, ~9h + 2 elementwise flops per row, ~13
+    per parameter for Adam."""
+    macs = 2 * d1 * h + 2 * (h + 1) * h + h * h + 2 * (h + 1) + h
+    params = d1 * h + (h + 1) * h + (h + 1)
+    return t_len * (2 * macs + 9 * h + 2) + 13 * params
+
+
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the float32 peak
+    and bytes over the HBM rate."""
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def phase_device():
@@ -137,8 +236,9 @@ def _oracle(ar, ai, t, i, o):
     return (ph.abs() ** 2).numpy()
 
 
-def _time_ms(fn, reps):
-    fn()
+def _time_ms(fn, reps, warm=True):
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -148,6 +248,23 @@ def _time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _eigh_ms(mats):
+    """(ms, backend) of one batched torch.linalg.eigh on ``mats`` (B, n, n),
+    the library yardstick of the Jacobi kernels (it computes the
+    eigendecomposition only).  cuSOLVER's batched eigh refuses batches
+    above ~10k matrices of this size (CUSOLVER_STATUS_INVALID_VALUE at
+    32768 on the H100); the same call then runs with MAGMA as torch's
+    linear-algebra backend."""
+    try:
+        return _time_ms(lambda: torch.linalg.eigh(mats), 5), "cusolver"
+    except torch.linalg.LinAlgError:
+        torch.backends.cuda.preferred_linalg_library("magma")
+        try:
+            return _time_ms(lambda: torch.linalg.eigh(mats), 1), "magma"
+        finally:
+            torch.backends.cuda.preferred_linalg_library("default")
 
 
 def phase_kernel():
@@ -193,10 +310,16 @@ def phase_kernel():
         timings.setdefault(label, []).append(_time_ms(fn, reps))
     ms = min(timings["kernel"])
     plain_ms = min(timings["plain"])
+    herm = torch.complex(gar.permute(2, 0, 1), gai.permute(2, 0, 1))
+    lib_ms, lib = _eigh_ms(herm.contiguous())
+    bound = _bound(b * _herm_flops(n, 5), 4 * b * (2 * n * n + 2))
     print(f"timing n=7 B=131072: kernel {timings['kernel']} ms, plain "
           f"{timings['plain']} ms (min: {ms:.4f} vs {plain_ms:.3f} ms, "
-          f"{b / ms / 1e3:.1f} M Hams/s in the kernel)")
-    return worst, ms, plain_ms
+          f"{b / ms / 1e3:.1f} M Hams/s in the kernel); torch.linalg.eigh "
+          f"(complex64, {lib}, eigendecomposition only) {lib_ms:.4f} ms; "
+          f"bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return worst, ms, plain_ms, lib_ms, bound
 
 
 def phase_main_path():
@@ -421,9 +544,20 @@ def phase_zoo_kernels():
                                     ("kernel", kern, 100),
                                     ("plain", plain, 3)):
                 runs[label].append(_time_ms(fn, reps))
-            timings[name, b] = (min(runs["kernel"]), min(runs["plain"]))
+            if name == "amp":
+                mats = a.permute(2, 0, 1).contiguous()
+                bound = _bound(b * _amp_flops(7, 5), 4 * b * (49 + 1 + 2))
+            else:
+                mats = (h0 + torch.diag_embed(xs[:, :7])).contiguous()
+                bound = _bound(b * _grad_flops(7, 5),
+                               4 * (49 + b * (8 + 1 + 8)))
+            lib_ms, lib = _eigh_ms(mats)
+            timings[name, b] = (min(runs["kernel"]), min(runs["plain"]),
+                                lib_ms, bound)
             print(f"timing {name} n=7 B={b}: kernel {runs['kernel']} ms, "
-                  f"plain {runs['plain']} ms")
+                  f"plain {runs['plain']} ms; torch.linalg.eigh ({lib}, "
+                  f"eigendecomposition only) {lib_ms:.4f} ms; bound "
+                  f"{bound[0]:.5f} ms ({bound[1]})")
     return worst, timings
 
 
@@ -635,47 +769,372 @@ def phase_zoo_gates():
     return stats
 
 
+def _rollout_inputs(a_cnt, t_len, ham_noisy, seed):
+    """The rollout kernel's inputs at N=7, h=100 on the card: actor
+    weights from the port's init, carries spread up to the wrap bounds,
+    threefry noise (sigma 0.05 on the Hamiltonian)."""
+    from code_robchar_tpu_torch.models import actor_critic as ac
+    from code_robchar_tpu_torch.ops import chain, prng, rollout
+
+    n, d = 7, 8
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = ac.init_params(prng.split(prng.key(seed), a_cnt).to(dev), d, d,
+                            device=dev)
+    k_eps, k_zd, k_zn = prng.split(prng.key(seed + 1).to(dev), 3)
+    noisy = {}
+    if ham_noisy:
+        noisy = dict(zdiag=prng.normal(k_zd, (t_len, n, a_cnt)) * 0.05,
+                     znn=prng.normal(k_zn, (t_len, n - 1, a_cnt)) * 0.05)
+    return (*rollout.fold_actor_weights(params),
+            chain.xx_hamiltonian_real(n, dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.uniform(-9.5, 9.5, (n, a_cnt)), **f32),
+            torch.as_tensor(rng.uniform(0, 30, a_cnt), **f32),
+            torch.as_tensor(rng.integers(0, 40, a_cnt), dtype=torch.int32,
+                            device=dev),
+            prng.normal(k_eps, (t_len, d, a_cnt)),
+            noisy.get("zdiag"), noisy.get("znn"))
+
+
+def _near_wrap(raw, n, bmax, maxtime, tol=1e-5):
+    """(A,) bool: raw (d, A) pre-wrap actions and time within ``tol`` of a
+    wrap boundary (a multiple of bmax or maxtime, or a time of 0, where
+    done flips)."""
+    def close(x, period):
+        m = torch.round(x.abs() / period)
+        return (m >= 1) & ((x.abs() - m * period).abs() < tol)
+
+    return (close(raw[:n], bmax).any(0) | close(raw[n], maxtime)
+            | (raw[n].abs() < tol))
+
+
+def _rollouts_parted(x, y):
+    """(A,) bool: agents whose trajectories (a RolloutOut each) differ by
+    more than TOL_PPO anywhere, or in a done or timeout flag."""
+    err = torch.stack([(x.a - y.a).abs().amax((0, 1)),
+                       (x.fid - y.fid).abs().amax(0),
+                       (x.obs2 - y.obs2).abs().amax((0, 1))]).amax(0)
+    flags = ((x.done != y.done) | (x.timeout != y.timeout)).any(0)
+    return (err > TOL_PPO) | flags | ~torch.isfinite(err)
+
+
+def _hold_rollout(label, args, kw, free=True):
+    """The rollout kernel against its plain version on the card, step by
+    step: each step of the plain version starts from the kernel's own
+    carry (rebuilt from its obs2, done and timeout), so a rounding
+    difference of one step is not amplified by the next ones.  Free
+    running, the accumulated action feeds back through the MLP and the
+    trajectories part; with ``free`` that count is printed beside a
+    witness, the plain version against itself with the carry moved one
+    ulp.  Returns the max abs error of the agents that agree."""
+    from code_robchar_tpu_torch.ops import rollout
+
+    w1, w2, w3, ls, h0, action, tstep, ep_len, eps, zd, zn = args
+    got = rollout.actor_env_rollout(*args, **kw)
+    torch.cuda.synchronize()
+    n = action.shape[0]
+    t_len, a_cnt = got.fid.shape
+    err = torch.zeros(a_cnt, device=h0.device)
+    flags = torch.zeros(a_cnt, dtype=torch.bool, device=h0.device)
+    near = torch.zeros_like(flags)
+    act, t, ep = action, tstep, ep_len
+    for s in range(t_len):
+        one = rollout.actor_env_rollout_plain(
+            w1, w2, w3, ls, h0, act, t, ep, eps[s:s + 1],
+            None if zd is None else zd[s:s + 1],
+            None if zn is None else zn[s:s + 1], **kw)
+        err = torch.maximum(err, torch.stack([
+            (got.a[s] - one.a[0]).abs().amax(0),
+            (got.fid[s] - one.fid[0]).abs(),
+            (got.obs2[s] - one.obs2[0]).abs().amax(0)]).amax(0))
+        flags |= (got.done[s] != one.done[0]) | \
+            (got.timeout[s] != one.timeout[0])
+        near |= _near_wrap(torch.cat([act, t[None]]) + one.a[0], n,
+                           kw["bmax"], kw["maxtime"])
+        term = got.done[s] | got.timeout[s]
+        act = torch.where(term[None], 0.0, got.obs2[s, :n])
+        t = torch.where(term, 0.0, got.obs2[s, n])
+        ep = torch.where(term, 0, ep + 1)
+    parted = (err > TOL_PPO) | flags | ~torch.isfinite(err)
+    n_parted, n_other = int(parted.sum()), int((parted & ~near).sum())
+    worst = float(err[~parted].max())
+
+    ok = n_other == 0 and n_parted <= 0.01 * a_cnt
+    report = ""
+    if free:
+        plain = rollout.actor_env_rollout_plain(*args, **kw)
+        nudged = list(args)
+        nudged[5] = torch.nextafter(action, torch.full_like(action, np.inf))
+        witness = rollout.actor_env_rollout_plain(*nudged, **kw)
+        report = (f"; free running, agents > {TOL_PPO:g} apart: kernel vs "
+                  f"plain {int(_rollouts_parted(got, plain).sum())}, plain "
+                  f"vs plain with the carry one ulp up "
+                  f"{int(_rollouts_parted(plain, witness).sum())}")
+    print(f"rollout kernel {label}: A={a_cnt} T={t_len}, step by step from "
+          f"the kernel's carry: max |kernel-plain| {worst:.3e} (tol "
+          f"{TOL_PPO:g}); parted {n_parted}/{a_cnt}, of them away from a "
+          f"wrap boundary {n_other} {'ok' if ok else 'FAIL'}{report}; "
+          f"timeouts {int(got.timeout.sum())}, dones {int(got.done.sum())}")
+    if not ok:
+        raise RuntimeError(f"rollout kernel disagrees with its plain version "
+                           f"({label})")
+    return worst
+
+
+def _critic_inputs(a_cnt, t_len, seed):
+    """Critic weights from the port's init, zero moments, and a batch of
+    visited controllers and returns, float32 on the card."""
+    from code_robchar_tpu_torch.models import actor_critic as ac
+    from code_robchar_tpu_torch.ops import critic, prng
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    params = ac.init_params(prng.split(prng.key(seed), a_cnt).to(dev), 8, 8,
+                            device=dev)
+    theta = critic.pack_critic(params, a_cnt)
+    obs = np.concatenate([rng.uniform(-10, 10, (a_cnt, t_len, 7)),
+                          rng.uniform(0, 30, (a_cnt, t_len, 1))], axis=2)
+    return (theta, torch.zeros_like(theta), torch.zeros_like(theta),
+            torch.zeros(a_cnt, dtype=torch.int32, device=dev),
+            torch.as_tensor(obs, dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.uniform(0, 5, (a_cnt, t_len)),
+                            dtype=torch.float32, device=dev))
+
+
+def phase_ppo_kernels():
+    from code_robchar_tpu_torch.ops import critic, rollout
+
+    kw = dict(in_spin=0, out_spin=6, sweeps=4, bmax=10.0, maxtime=30.0,
+              max_ep_len=40)
+    worst = {"rollout": 0.0, "critic": 0.0}
+    for a_cnt in (1024, 1000):
+        for noisy in (True, False):
+            args = _rollout_inputs(a_cnt, 64, noisy, seed=a_cnt + noisy)
+            worst["rollout"] = max(worst["rollout"], _hold_rollout(
+                f"ham_noisy={noisy}", args, dict(kw, ham_noisy=noisy)))
+
+    lr = 1e-3
+    inputs = _critic_inputs(PPO_AGENTS, PPO_STEPS, seed=21)
+    for iters, share in CRITIC_SHARE.items():
+        got = critic.critic_train_packed(*inputs, h=100, iters=iters, lr=lr)
+        want = critic.critic_train_plain(*inputs, h=100, iters=iters, lr=lr)
+        torch.cuda.synchronize()
+        errs = [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])]
+        over = sum(int(((g - w).abs() > 2e-6 + 1e-5 * w.abs()).sum())
+                   for g, w in zip(got[:3], want[:3]))
+        total = 3 * got[0].numel()
+        ok = (torch.equal(got[3], want[3]) and max(errs) <= 2 * lr * iters
+              and over <= share * total)
+        print(f"critic kernel A={PPO_AGENTS} T={PPO_STEPS} iters={iters}: "
+              f"max |kernel-plain| theta, mu, nu {errs}; past atol 2e-6 + "
+              f"rtol 1e-5: {over} of {total} (at most {share:g} of them) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"critic kernel disagrees with its plain "
+                               f"version at iters={iters}")
+        worst["critic"] = max(worst["critic"], *errs)
+
+    # the path's shapes, held step by step as above (one plain pass), then
+    # timed; the plain version is warm from the holds, so its one timed
+    # pass needs no warm-up
+    timings = {}
+    args = _rollout_inputs(PPO_AGENTS, PPO_STEPS, True, seed=5)
+    kwt = dict(kw, max_ep_len=1000, ham_noisy=True)
+    worst["rollout"] = max(worst["rollout"], _hold_rollout(
+        "at the path's shapes, ham_noisy=True", args, kwt, free=False))
+    runs = {"plain": [], "kernel": []}
+    for label, fn, reps, warm in (
+            ("kernel", lambda: rollout.actor_env_rollout(*args, **kwt), 5,
+             True),
+            ("kernel", lambda: rollout.actor_env_rollout(*args, **kwt), 5,
+             True),
+            ("plain", lambda: rollout.actor_env_rollout_plain(*args, **kwt),
+             1, False)):
+        runs[label].append(_time_ms(fn, reps, warm))
+    n, h, d, a, t = 7, 100, 8, PPO_AGENTS, PPO_STEPS
+    nbytes = 4 * (a * ((d + 1) * h + (h + 1) * h + (h + 1) * d + d)
+                  + t * a * (d + n + n - 1) + t * a * (2 * d + 1)
+                  + 2 * a * (n + 2) + n * n) + 2 * t * a
+    timings["rollout"] = (min(runs["kernel"]), min(runs["plain"]),
+                          _bound(a * t * _rollout_step_flops(n, h, 4),
+                                 nbytes))
+    print(f"timing rollout A={a} T={t} sweeps 4: kernel {runs['kernel']} "
+          f"ms, plain {runs['plain']} ms; bound "
+          f"{timings['rollout'][2][0]:.4f} ms ({timings['rollout'][2][1]})")
+
+    runs = {"plain": [], "kernel": []}
+    ck = dict(h=100, iters=200, lr=lr)
+    for label, fn, reps in (
+            ("plain", lambda: critic.critic_train_plain(*inputs, **ck), 1),
+            ("kernel", lambda: critic.critic_train_packed(*inputs, **ck), 2),
+            ("kernel", lambda: critic.critic_train_packed(*inputs, **ck), 2),
+            ("plain", lambda: critic.critic_train_plain(*inputs, **ck), 1)):
+        runs[label].append(_time_ms(fn, reps))
+    p = critic.n_params(9, 100)
+    timings["critic"] = (min(runs["kernel"]), min(runs["plain"]), _bound(
+        a * 200 * _critic_iter_flops(9, 100, t),
+        4 * (6 * a * p + a * t * d + a * t) + 8 * a))
+    print(f"timing critic A={a} T={t} iters 200: kernel {runs['kernel']} ms, "
+          f"plain {runs['plain']} ms; bound {timings['critic'][2][0]:.3f} ms "
+          f"({timings['critic'][2][1]})")
+    return worst, timings
+
+
+def phase_ppo_path():
+    from code_robchar_tpu_torch.models import PPO_en
+    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, prng, rollout
+
+    a_cnt, t_len = PPO_AGENTS, PPO_STEPS
+    ppo = PPO_en(7, 0, 6, testing=True, fid_threshold=0.0, ham_noisy=True,
+                 run_until_told_to_stop=True, run_until_completion_its=10**12,
+                 landscape_exploration=True, save_topc=100,
+                 num_agents=a_cnt, rollout_sweeps=4, device="cuda",
+                 dtype=torch.float32)
+    epoch_fn = ppo._build_epoch(t_len, 0.2, 3e-3, 1e-3, 1000, 200, 200, 0.01)
+    st = ppo._init_agent(prng.split(prng.key(0), a_cnt))
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    ppo.stage_hook = mark
+    rollout.LAUNCHES = critic.LAUNCHES = cuda_jacobi.SYM_AMP_LAUNCHES = 0
+    for _ in range(2):
+        st, out = epoch_fn(st)
+        float(out.rewards.sum())
+    marks.clear()
+    start = time.perf_counter()
+    pi_iters, rewards = [], []
+    for _ in range(3):
+        st, out = epoch_fn(st)
+        rewards.append(out.rewards)
+        pi_iters.append(float(out.pi_iters.double().mean()))
+        float(out.rewards.sum())
+    wall = time.perf_counter() - start
+    launches = {"rollout": rollout.LAUNCHES, "critic": critic.LAUNCHES,
+                "amp": cuda_jacobi.SYM_AMP_LAUNCHES}
+    torch.cuda.synchronize()
+    split = {}
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        if name != "start":
+            split[name] = split.get(name, 0.0) + a.elapsed_time(b) / 3
+    rate = a_cnt * t_len * 3 / wall
+    rew = torch.stack(rewards)
+    print(f"ppo path: N=7 {a_cnt} agents x {t_len} steps, 200/200 iters: "
+          f"3 epochs {wall:.4f} s, {rate:.1f} env-steps/s; per epoch (ms, "
+          f"CUDA events): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                        split.items())
+          + f"; mean pi_iters {pi_iters}; launches over 5 epochs {launches};"
+          f" best reward {float(rew.max()):.6f}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the PPO path missed a kernel: {launches}")
+    if not bool(torch.isfinite(rew).all()) or float(rew.min()) < -1e-5 or \
+            float(rew.max()) > 1 + 1e-5:
+        raise RuntimeError("PPO rewards outside [0, 1]")
+    return launches, rate, split, wall
+
+
+def phase_ppo_checks():
+    from code_robchar_tpu_torch.models import PPO_en, ppo
+    from code_robchar_tpu_torch.ops import prng
+
+    budget = 12800
+    p = PPO_en(7, 0, 6, testing=True, fid_threshold=0.0, ham_noisy=True,
+               run_until_told_to_stop=True, run_until_completion_its=budget,
+               landscape_exploration=True, save_topc=64, num_agents=64,
+               rollout_sweeps=4, device="cuda")
+    start = time.perf_counter()
+    best = p.run(steps_per_epoch=100, train_pi_iters=20, train_v_iters=20)
+    rec = p.record
+    print(f"ppo budget run: N=7 64 agents, budget {budget}: func_calls "
+          f"{rec['func_calls']}, best {best:.6f}, controllers "
+          f"{len(rec.get('controllers', []))}, "
+          f"{time.perf_counter() - start:.2f} s")
+    if not rec.get("controllers") or rec["func_calls"] + 1 < budget:
+        raise RuntimeError("the PPO budget-mode run did not finish")
+
+    # one epoch of 256 agents at N=4, T=64, card against CPU from one state
+    a_cnt, first = 256, 16
+    args = (64, 0.2, 3e-3, 1e-3, 1000, 10, 10, 0.01)
+    cpu, card = (PPO_en(4, 0, 2, testing=True, num_agents=a_cnt, seed=3,
+                        ham_noisy=True, device=dev) for dev in ("cpu", "cuda"))
+    st = cpu._init_agent(prng.split(prng.key(1), a_cnt))
+    _, want = cpu._build_epoch(*args)(st)
+    _, got = card._build_epoch(*args)(ppo.state_to(st, "cuda"))
+    err = (got.rewards.cpu() - want.rewards).abs()
+    close = int((err[:, :first].amax(1) <= TOL_PPO).sum())
+
+    # witness: the CPU against itself with the carried actions moved by
+    # 4e-6, the kernels' step-by-step difference (phase 7)
+    _, moved = cpu._build_epoch(*args)(st._replace(
+        env=st.env._replace(action=st.env.action + 4e-6)))
+    wit = int(((moved.rewards - want.rewards).abs().amax(1)
+               > TOL_PPO).sum())
+    apart = int((err.amax(1) > TOL_PPO).sum())
+    pct = -(-a_cnt // 100)
+    bar = max(wit, pct) + pct
+    ok = close >= 0.99 * a_cnt and apart <= bar
+    print(f"ppo card vs cpu (N=4, {a_cnt} agents, T=64, f32): the first "
+          f"{first} steps' rewards within {TOL_PPO:g} on {close}/{a_cnt} "
+          f"agents (at least 99%); over all 64 steps apart on "
+          f"{apart}/{a_cnt} (at most {bar}: the witness or 1%, whichever is "
+          f"more, plus 1%; max {float(err.max()):.3e}), the witness, the CPU "
+          f"against itself with the carried actions 4e-6 up, on "
+          f"{wit}/{a_cnt}; pi_iters equal on "
+          f"{int((got.pi_iters.cpu() == want.pi_iters).sum())}/{a_cnt} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the PPO epoch on the card disagrees with the CPU")
+
+
 def main():
     smi = phase_device()
     res = phase_build()
-    err, ms, plain_ms = phase_kernel()
+    err, ms, plain_ms, lib_ms, bound = phase_kernel()
     launches, wall, rate, checksum = phase_main_path()
     zoo_err, zoo_ms = phase_zoo_kernels()
     zoo_launches, zoo = phase_zoo_path(zoo_err)
     ks = phase_zoo_gates()
+    ppo_err, ppo_ms = phase_ppo_kernels()
+    ppo_launches, ppo_rate, _, _ = phase_ppo_path()
+    phase_ppo_checks()
     src = "code_robchar_tpu_torch/csrc/"
-    kernels = [{
-        "name": "herm_jacobi_fidelity",
-        "route": "cuda",
-        "source": src + "herm_jacobi_fidelity.cu",
-        "replaces": "code_robchar_tpu/ops/pallas_jacobi.py:209",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "sym_jacobi_amp",
-        "route": "cuda",
-        "source": src + "sym_jacobi_amp.cu",
-        "replaces": "code_robchar_tpu/ops/pallas_jacobi.py:356",
-        "launches": zoo_launches["amp"],
-        "max_abs_err": zoo_err["amp"],
-        "ms": zoo_ms["amp", 9216][0],
-        "plain_ms": zoo_ms["amp", 9216][1],
-    }, {
-        "name": "sym_jacobi_grad",
-        "route": "cuda",
-        "source": src + "sym_jacobi_grad.cu",
-        "replaces": "code_robchar_tpu/ops/pallas_jacobi.py:408",
-        "launches": zoo_launches["grad"],
-        "max_abs_err": zoo_err["grad"],
-        "ms": zoo_ms["grad", 1024][0],
-        "plain_ms": zoo_ms["grad", 1024][1],
-    }]
+
+    def entry(name, replaces, n_launch, max_err, times, lib):
+        k_ms, p_ms, (b_ms, b_by) = times
+        return {"name": name, "route": "cuda", "source": src + name + ".cu",
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+    amp, grad = zoo_ms["amp", 9216], zoo_ms["grad", 1024]
+    kernels = [
+        entry("herm_jacobi_fidelity",
+              "code_robchar_tpu/ops/pallas_jacobi.py:209", launches, err,
+              (ms, plain_ms, bound), lib_ms),
+        entry("sym_jacobi_amp", "code_robchar_tpu/ops/pallas_jacobi.py:356",
+              zoo_launches["amp"], zoo_err["amp"],
+              (amp[0], amp[1], amp[3]), amp[2]),
+        entry("sym_jacobi_grad", "code_robchar_tpu/ops/pallas_jacobi.py:408",
+              zoo_launches["grad"], zoo_err["grad"],
+              (grad[0], grad[1], grad[3]), grad[2]),
+        entry("actor_env_rollout",
+              "code_robchar_tpu/ops/pallas_rollout.py:127",
+              ppo_launches["rollout"], ppo_err["rollout"],
+              ppo_ms["rollout"], None),
+        entry("critic_train", "code_robchar_tpu/ops/pallas_critic.py:54",
+              ppo_launches["critic"], ppo_err["critic"], ppo_ms["critic"],
+              None)]
     print(f"summary: build {res.seconds:.2f} s; MC path {wall:.4f} s, "
           f"{rate:.1f} Hams/s, rim_checksum {checksum:.3f}; L-BFGS "
           f"{zoo['lbfgs'][1]:.1f} restarts/s, NM {zoo['nmplus'][1]:.1f} "
-          f"restarts/s (N=7, pool {ZOO_POOL}); KS {ks}; card {smi}")
+          f"restarts/s (N=7, pool {ZOO_POOL}); KS {ks}; PPO "
+          f"{ppo_rate:.1f} env-steps/s (N=7, {PPO_AGENTS} agents), "
+          f"amplitude launches on the PPO path {ppo_launches['amp']}; card "
+          f"{smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ obvious counterpart, and is held against it by the ``tests/test_torch_*``
 parity suite on the CPU.  It imports ``torch`` and numpy only — never jax,
 never the JAX package.
 
-Layout (the Monte-Carlo characterisation slice and the optimizer zoo's
-L-BFGS and Nelder-Mead slice):
+Layout (the Monte-Carlo characterisation slice, the optimizer zoo's
+L-BFGS and Nelder-Mead slice and the PPO slice):
 
 - ``config``   dtype helpers, the device resolver, TF32 off
 - ``ops``      counter-based threefry PRNG (``prng``), chain Hamiltonians
@@ -15,10 +15,13 @@ L-BFGS and Nelder-Mead slice):
                and the fixed ensembles (``noise``), the plain Jacobi
                solvers, amplitudes and exact gradient (``realform``), the
                hand-written CUDA kernels' binding and dispatch
-               (``cuda_jacobi``), Sobol restart streams (``sobol``)
+               (``cuda_jacobi``), the PPO rollout and critic kernels'
+               dispatch and plain versions (``rollout``, ``critic``),
+               Sobol restart streams (``sobol``)
 - ``metrics``  RIM / Wasserstein metrics, DKW bands, the metric registry
 - ``mc``       the chunked Monte-Carlo sweep and its fused metric reduction
-- ``models``   the zoo's batched objectives, run loop, L-BFGS and NMPlus
+- ``models``   the zoo's batched objectives, run loop, L-BFGS and NMPlus;
+               PPO's environment, actor-critic, masked Adam and trainer
 - ``utils``    the nvcc build of ``csrc/*.cu`` and its ctypes loader, the
                record protocol, deadlines, JSON IO
 - ``csrc``     CUDA C++ kernel sources (sm_90a) and their shared header

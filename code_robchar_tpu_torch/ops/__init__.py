@@ -1,5 +1,6 @@
 """Numeric ops: threefry PRNG, chain Hamiltonians, structured noise, the
-plain Jacobi solvers and their CUDA kernels."""
+plain Jacobi solvers and their CUDA kernels.  The PPO rollout and critic
+kernels live in ops/rollout.py and ops/critic.py."""
 
 from code_robchar_tpu_torch.ops.chain import (
     xx_hamiltonian,

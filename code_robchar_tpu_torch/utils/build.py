@@ -35,6 +35,8 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--resource-usage")
+#: shared memory one block of the sm_90a target can use (227 KB)
+SMEM_PER_BLOCK = 232448
 
 
 @dataclasses.dataclass(frozen=True)

@@ -155,3 +155,119 @@ def test_optimizers_on_card_match_cpu(dev, cls):
     dx = (got.x.cpu() - want.x).abs().amax(1)
     assert int((dx <= 1e-3).sum()) >= 28, dx
     assert float((got.fid.cpu() - want.fid).abs().median()) <= 1e-4
+
+
+def _rollout_case(n, hid, a_cnt, t_len, dev, seed=0):
+    """Random actor weights (A agents, hidden width hid) and a carry away
+    from the wrap boundaries, float32 on ``dev``."""
+    from code_robchar_tpu_torch.ops import rollout
+
+    rng = np.random.default_rng(seed)
+    d = n + 1
+    params = {}
+    for i, (i_, o) in enumerate([(d, hid), (hid, hid), (hid, d)]):
+        params[f"pi/Dense_{i}/kernel"] = rng.normal(0, 1 / np.sqrt(i_),
+                                                    (a_cnt, i_, o))
+        params[f"pi/Dense_{i}/bias"] = rng.normal(0, 0.1, (a_cnt, o))
+    params["pi/log_std"] = rng.normal(-0.5, 0.2, (a_cnt, d))
+    params = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+              for k, v in params.items()}
+    f32 = dict(dtype=torch.float32, device=dev)
+    h0 = chain.xx_hamiltonian_real(n, dtype=torch.float32, device=dev)
+    return (*rollout.fold_actor_weights(params), h0,
+            torch.as_tensor(rng.uniform(-4, 4, (n, a_cnt)), **f32),
+            torch.as_tensor(rng.uniform(2, 20, a_cnt), **f32),
+            torch.as_tensor(rng.integers(0, 3, a_cnt), dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor(rng.normal(size=(t_len, d, a_cnt)), **f32),
+            torch.as_tensor(rng.normal(0, 0.05, (t_len, n, a_cnt)), **f32),
+            torch.as_tensor(rng.normal(0, 0.05, (t_len, n - 1, a_cnt)),
+                            **f32))
+
+
+@pytest.mark.parametrize("n,hid,ham_noisy", [(2, 16, True), (4, 16, False),
+                                             (7, 100, True), (10, 40, True)])
+def test_rollout_kernel_matches_plain_version(dev, n, hid, ham_noisy):
+    from code_robchar_tpu_torch.ops import rollout
+
+    args = _rollout_case(n, hid, 70, 20, dev, seed=n)
+    kw = dict(in_spin=0, out_spin=n - 1, sweeps=4, bmax=10.0, maxtime=30.0,
+              max_ep_len=7, ham_noisy=ham_noisy)
+    before = rollout.LAUNCHES
+    got = rollout.actor_env_rollout(*args, **kw)
+    want = rollout.actor_env_rollout_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert rollout.LAUNCHES == before + 1
+    for name in ("a", "fid", "obs2", "next_action", "next_t"):
+        err = float((getattr(got, name) - getattr(want, name)).abs().max())
+        assert err <= 1e-4, (name, err)
+    for name in ("done", "timeout", "next_ep"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert bool(got.timeout.any())
+
+
+@pytest.mark.parametrize("hid,t_len", [(16, 37), (100, 64)])
+def test_critic_kernel_matches_plain_version(dev, hid, t_len):
+    from code_robchar_tpu_torch.ops import critic
+
+    rng = np.random.default_rng(hid)
+    a_cnt, d = 5, 8
+    p = critic.n_params(d + 1, hid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    theta = torch.as_tensor(rng.normal(0, 0.2, (a_cnt, p)), **f32)
+    mu = torch.as_tensor(rng.normal(0, 1e-3, (a_cnt, p)), **f32)
+    nu = torch.as_tensor(rng.uniform(0, 1e-5, (a_cnt, p)), **f32)
+    count = torch.as_tensor(rng.integers(0, 5, a_cnt), dtype=torch.int32,
+                            device=dev)
+    obs = torch.as_tensor(rng.normal(size=(a_cnt, t_len, d)), **f32)
+    rets = torch.as_tensor(rng.normal(size=(a_cnt, t_len)), **f32)
+    kw = dict(h=hid, iters=7, lr=1e-3)
+    before = critic.LAUNCHES
+    got = critic.critic_train_packed(theta, mu, nu, count, obs, rets, **kw)
+    want = critic.critic_train_plain(theta, mu, nu, count, obs, rets, **kw)
+    torch.cuda.synchronize()
+    assert critic.LAUNCHES == before + 1
+    for g, w in zip(got[:3], want[:3]):
+        assert bool(((g - w).abs() <= 2e-6 + 1e-5 * w.abs()).all())
+    assert torch.equal(got[3], count + 7)
+
+
+def test_ppo_kernels_refuse_float64(dev):
+    from code_robchar_tpu_torch.ops import critic, rollout
+
+    args = [x.double() if x.is_floating_point() else x
+            for x in _rollout_case(4, 16, 8, 3, dev)]
+    before = (rollout.LAUNCHES, critic.LAUNCHES)
+    with pytest.raises(ValueError, match="float32"):
+        rollout.actor_env_rollout(*args, in_spin=0, out_spin=3, sweeps=4,
+                                  bmax=10.0, maxtime=30.0, max_ep_len=5,
+                                  ham_noisy=True)
+    x = torch.zeros((2, critic.n_params(5, 16)), dtype=torch.float64,
+                    device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        critic.critic_train_packed(
+            x, x, x, torch.zeros(2, dtype=torch.int32, device=dev),
+            torch.zeros((2, 3, 4), dtype=torch.float64, device=dev),
+            torch.zeros((2, 3), dtype=torch.float64, device=dev), h=16,
+            iters=1, lr=1e-3)
+    assert (rollout.LAUNCHES, critic.LAUNCHES) == before
+
+
+def test_ppo_epoch_on_card_matches_cpu(dev):
+    """One epoch at N=4, 16 agents, T=16 through the kernels on the card
+    against the plain versions on the CPU, both float32, from one state."""
+    from code_robchar_tpu_torch.models import PPO_en
+    from code_robchar_tpu_torch.ops import critic, rollout
+
+    def one(device):
+        p = PPO_en(4, 0, 2, testing=True, num_agents=16, seed=3,
+                   ham_noisy=True, device=device)
+        fn = p._build_epoch(16, 0.2, 3e-3, 1e-3, 1000, 3, 3, 0.01)
+        return fn(p._init_agent(prng.split(prng.key(1), 16)))
+
+    before = (rollout.LAUNCHES, critic.LAUNCHES)
+    (_, got), (_, want) = one(dev), one("cpu")
+    assert (rollout.LAUNCHES, critic.LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    err = (got.rewards.cpu() - want.rewards).abs().amax(1)
+    assert int((err <= 1e-4).sum()) >= 15, err

@@ -24,7 +24,10 @@ def test_import_pulls_in_no_jax():
             "import code_robchar_tpu_torch, code_robchar_tpu_torch.mc, "
             "code_robchar_tpu_torch.ops, code_robchar_tpu_torch.metrics, "
             "code_robchar_tpu_torch.models\n"
-            "from code_robchar_tpu_torch.ops import cuda_jacobi, prng\n"
+            "from code_robchar_tpu_torch.ops import cuda_jacobi, prng, "
+            "rollout, critic\n"
+            "from code_robchar_tpu_torch.models import actor_critic, env, "
+            "optim, ppo\n"
             "from code_robchar_tpu_torch.utils import build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'code_robchar_tpu' or "
@@ -218,6 +221,13 @@ def test_build_hash_covers_headers_and_compiles_each_source(monkeypatch,
     assert not second.cached and second.path != first.path
     assert os.listdir(build.BUILD_DIR) and not any(
         f.endswith(".tmp") for f in os.listdir(build.BUILD_DIR))
+
+
+def test_ppo_kernels_are_built_with_the_others():
+    """Both PPO kernels are csrc/*.cu sources, so the per-source parallel
+    build compiles them and its hash covers them."""
+    for name in ("actor_env_rollout.cu", "critic_train.cu"):
+        assert os.path.exists(os.path.join(PORT, "csrc", name))
 
 
 def test_package_data_ships_the_headers():
