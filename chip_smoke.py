@@ -79,22 +79,46 @@ Phases:
    Agents whose raw action or time comes within 1e-5 of a wrap boundary
    may part (a rounding-level difference picks the other branch); they
    are counted, and the phase fails if any other agent parts or more than
-   1% do.  The critic kernel against its plain version at A = 1024,
-   T = 500, iters = 7 and 200 (the path's count) at test_pallas's bars
-   (atol 2e-6 + rtol 1e-5; an element past them must stay within 2 lr
-   iters, the step Adam takes when a gradient within rounding of zero
-   flips sign, and such elements may be at most the share CRITIC_SHARE
-   gives of all).  Then both timed with CUDA events at the path's shapes
-   (rollout A = 1024, T = 500, sweeps 4, ham_noisy; critic A = 1024,
-   T = 500, iters 200) against their plain versions.
+   1% do.  The float32 critic kernel against its plain version at
+   A = 1024, T = 500, iters = 7 and 200 (the path's count) at
+   test_pallas's bars (atol 2e-6 + rtol 1e-5; an element past them must
+   stay within 2 lr iters, the step Adam takes when a gradient within
+   rounding of zero flips sign, and such elements may be at most the share
+   CRITIC_SHARE gives of all).  The bf16 critic kernel (fast_dot=True:
+   bfloat16 operands, float32 sums, wgmma) against
+   critic_train_plain(fast_dot=True) at those shapes and at a ragged one
+   (A = 130, T = 300, h = 30: T no multiple of the 128-row tile, h none of
+   8).  At iters = 1 from zero moments mu = 0.1 g, so this reads the
+   gradient: max |dmu| at most CRITIC_BF16_GRAD of the largest |mu| (the
+   sums differ in order, and an operand that lands on the other side of a
+   bf16 rounding boundary moves one term of a sum by 2^-8 of itself).  At
+   iters = 7 and 200 the count must be equal, every element within
+   2 lr iters, and the share of elements past atol 2e-6 + rtol 1e-5 at
+   most twice the witness's plus CRITIC_BF16_MARGIN; the witness, printed
+   beside it, is the plain bf16 version against itself with theta moved
+   one ulp: the roundings to bfloat16 amplify such a difference and Adam
+   carries it on.  A functional gate on one line: the value loss
+   mean((v - ret)^2) over the 1024 agents after 200 iterations from the
+   bf16 kernel, the plain bf16 version and the float32 kernel; the bf16
+   kernel's within CRITIC_BF16_LOSS (relative) of the plain bf16 version's.
+   Then all three kernels timed with CUDA events at the path's shapes
+   (rollout A = 1024, T = 500, sweeps 4, ham_noisy; both critic kernels
+   A = 1024, T = 500, iters 200) against their plain versions.
 8. PPO path at full width, the bench.py configuration: PPO_en(7, 0, 6,
    ham_noisy, 1024 agents, rollout_sweeps 4, float32 on the card), epochs
    of 500 steps with 200 / 200 pi / v iterations and target_kl 0.01; two
    warm-up and three timed epochs.  Prints env-steps/s, the epoch split by
    CUDA events (rollout, true fid, values + logps + GAE, pi loop, critic),
-   mean pi_iters and the launches of kernels 3, 4 and 5 over the five
-   epochs (4 and 5 once per epoch; each must be > 0); rewards finite and in
-   [0, 1].
+   mean pi_iters and the launches of the amplitude, rollout and bf16
+   critic kernels over the five epochs (the last two once per epoch; the
+   float32 critic kernel must not be launched: on the card the epoch asks
+   for fast_dot=True); rewards finite and in [0, 1].  Then the float32
+   critic kernel's own path, with its count set to 0 just before:
+   ops.critic.critic_train(fast_dot=False), the entry point of a
+   full-precision regression on the card, takes 200 Adam steps from the
+   epochs' final state (1024 agents, full width) on the last epoch's
+   visited controllers and rewards; one launch, count advanced by 200,
+   finite parameters and a lower value loss than before.
 9. PPO on the card beyond the timed path: one budget-mode run() (N=7, 64
    agents, 100-step epochs, a 12800-fcall budget) must end with a
    non-empty record["controllers"] and func_calls + 1 >= 12800; and one
@@ -107,14 +131,15 @@ Phases:
    differ by 4e-6 (the witness): the agents apart by more than 1e-4 over
    all 64 steps may be at most the witness's count or 1%, whichever is
    more, plus 1%.
-10. the kernels JSON line (all five kernels: launches on their paths, the
+10. the kernels JSON line (all six kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
     events, bound_ms from this run's shapes and the hand counts of
-    artifacts/perf/roofline.py:56-99 against 67 TFLOP/s float32 and
-    3.35 TB/s, and library_ms: batched torch.linalg.eigh on the same
-    matrices for kernels 1-3, which computes the eigendecomposition only,
-    none for kernels 4 and 5), then {"ok": true, "device": {...}} as the
-    last line.
+    artifacts/perf/roofline.py:56-99 against 67 TFLOP/s float32 (the bf16
+    critic kernel's products against 989 TFLOP/s) and 3.35 TB/s, and
+    library_ms: batched torch.linalg.eigh on the same matrices for kernels
+    1-3, which computes the eigendecomposition only, none for the rollout
+    and critic kernels), then {"ok": true, "device": {...}} as the last
+    line.
 """
 
 from __future__ import annotations
@@ -138,11 +163,22 @@ ZOO_POOL = 8192
 #: part, 700 W)
 F32_PEAK = 67e12
 HBM_RATE = 3.35e12
+#: its dense bf16 tensor-core rate
+BF16_PEAK = 989e12
 TOL_PPO = 1e-4
 PPO_AGENTS, PPO_STEPS = 1024, 500
 #: the critic kernel against its plain version: per iteration count, the
 #: largest share of elements (theta, mu, nu) past atol 2e-6 + rtol 1e-5
 CRITIC_SHARE = {7: 1e-5, 200: 1e-5}
+#: the bf16 critic kernel against the plain bf16 version: the gradient
+#: (iters = 1) relative to its largest element (3.3e-5 measured at the
+#: path's shapes, 6.7e-6 at the ragged one); the margin over twice the
+#: witness's share of elements past the bars (iters = 7, 200; the kernel's
+#: share was 5.8e-4 and 0.49 where the witness's was 7.6e-3 and 0.50); the
+#: value loss after 200 iterations, relative (3e-6 measured)
+CRITIC_BF16_GRAD = 2e-4
+CRITIC_BF16_MARGIN = 5e-3
+CRITIC_BF16_LOSS = 1e-3
 
 
 # hand counts per element of artifacts/perf/roofline.py:56-99 (sqrt,
@@ -173,19 +209,25 @@ def _rollout_step_flops(n, h, sweeps):
     return 2 * (d * h + h * h + h * d) + 2 * h + _amp_flops(n, sweeps) + 30
 
 
-def _critic_iter_flops(d1, h, t_len):
-    """One Adam iteration of one agent: 2 flops per multiply-add of the
-    forward and backward products, ~9h + 2 elementwise flops per row, ~13
-    per parameter for Adam."""
+def _critic_iter_ops(d1, h, t_len):
+    """One Adam iteration of one agent, (product flops, other flops): 2
+    flops per multiply-add of the forward and backward products; ~9h + 2
+    elementwise flops per row and ~13 per parameter for Adam."""
     macs = 2 * d1 * h + 2 * (h + 1) * h + h * h + 2 * (h + 1) + h
     params = d1 * h + (h + 1) * h + (h + 1)
-    return t_len * (2 * macs + 9 * h + 2) + 13 * params
+    return t_len * 2 * macs, t_len * (9 * h + 2) + 13 * params
 
 
-def _bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of operations over the float32 peak
-    and bytes over the HBM rate."""
-    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def _critic_iter_flops(d1, h, t_len):
+    return sum(_critic_iter_ops(d1, h, t_len))
+
+
+def _bound(flops, nbytes, bf16_flops=0.0):
+    """(bound_ms, bound_by): the larger of operations over their peak
+    (``flops`` over the float32 rate plus ``bf16_flops`` over the bf16
+    tensor-core rate) and bytes over the HBM rate."""
+    t_ops = (flops / F32_PEAK + bf16_flops / BF16_PEAK) * 1e3
+    t_bytes = nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -882,16 +924,16 @@ def _hold_rollout(label, args, kw, free=True):
     return worst
 
 
-def _critic_inputs(a_cnt, t_len, seed):
-    """Critic weights from the port's init, zero moments, and a batch of
-    visited controllers and returns, float32 on the card."""
+def _critic_inputs(a_cnt, t_len, seed, hid=100):
+    """Critic weights of width ``hid`` from the port's init, zero moments,
+    and a batch of visited controllers and returns, float32 on the card."""
     from code_robchar_tpu_torch.models import actor_critic as ac
     from code_robchar_tpu_torch.ops import critic, prng
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     params = ac.init_params(prng.split(prng.key(seed), a_cnt).to(dev), 8, 8,
-                            device=dev)
+                            hidden=(hid, hid), device=dev)
     theta = critic.pack_critic(params, a_cnt)
     obs = np.concatenate([rng.uniform(-10, 10, (a_cnt, t_len, 7)),
                           rng.uniform(0, 30, (a_cnt, t_len, 1))], axis=2)
@@ -902,12 +944,75 @@ def _critic_inputs(a_cnt, t_len, seed):
                             dtype=torch.float32, device=dev))
 
 
+def _critic_loss(theta, obs, rets, h):
+    """The value loss mean((v - ret)^2) over all agents and rows of the
+    critics packed in ``theta``, in full float32."""
+    from code_robchar_tpu_torch.ops import critic
+
+    a_cnt, t_len, d = obs.shape
+    w1, w2, w3 = critic._unpack(theta, d + 1, h)
+    ones = torch.ones((a_cnt, t_len, 1), dtype=obs.dtype, device=obs.device)
+    h1 = torch.tanh(torch.bmm(torch.cat([obs, ones], 2), w1))
+    h2 = torch.tanh(torch.bmm(torch.cat([h1, ones], 2), w2))
+    v = torch.bmm(torch.cat([h2, ones], 2), w3)[..., 0]
+    return float(((v - rets) ** 2).mean())
+
+
+def _hold_critic_bf16(label, inputs, h, lr):
+    """The bf16 critic kernel against critic_train_plain(fast_dot=True) on
+    the card at iters 1, 7 and 200 (the gates of phase 7 in the module
+    docstring).  Returns (the worst max abs error of theta, mu, nu over
+    the three counts, the kernel's and the plain version's theta after 200
+    iterations)."""
+    from code_robchar_tpu_torch.ops import critic
+
+    def share_past(xs, ys):
+        over = sum(int(((x - y).abs() > 2e-6 + 1e-5 * y.abs()).sum())
+                   for x, y in zip(xs, ys))
+        return over / sum(y.numel() for y in ys)
+
+    a_cnt, t_len = inputs[5].shape
+    worst = 0.0
+    for iters in (1, 7, 200):
+        kw = dict(h=h, iters=iters, lr=lr, fast_dot=True)
+        got = critic.critic_train_packed(*inputs, **kw)
+        want = critic.critic_train_plain(*inputs, **kw)
+        torch.cuda.synchronize()
+        errs = [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])]
+        ok = torch.equal(got[3], want[3]) and max(errs) <= 2 * lr * iters
+        head = (f"critic bf16 kernel {label} A={a_cnt} T={t_len} h={h} "
+                f"iters={iters}: max |kernel-plain| theta, mu, nu {errs}")
+        if iters == 1:
+            scale = float(want[1].abs().max())
+            ok = ok and errs[1] <= CRITIC_BF16_GRAD * scale
+            print(f"{head}; largest |mu| {scale:.3e} (max |dmu| at most "
+                  f"{CRITIC_BF16_GRAD:g} of it) {'ok' if ok else 'FAIL'}")
+        else:
+            moved = torch.nextafter(inputs[0],
+                                    torch.full_like(inputs[0], np.inf))
+            witness = critic.critic_train_plain(moved, *inputs[1:], **kw)
+            share = share_past(got[:3], want[:3])
+            wit = share_past(witness[:3], want[:3])
+            ok = ok and share <= 2 * wit + CRITIC_BF16_MARGIN
+            print(f"{head}; share past atol 2e-6 + rtol 1e-5: {share:.3e} "
+                  f"(at most twice the witness's plus "
+                  f"{CRITIC_BF16_MARGIN:g}); witness, plain vs plain with "
+                  f"theta one ulp up: {wit:.3e}, max "
+                  f"{float((witness[0] - want[0]).abs().max()):.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"the bf16 critic kernel disagrees with its "
+                               f"plain version ({label}, iters={iters})")
+        worst = max(worst, *errs)
+    return worst, got[0], want[0]
+
+
 def phase_ppo_kernels():
     from code_robchar_tpu_torch.ops import critic, rollout
 
     kw = dict(in_spin=0, out_spin=6, sweeps=4, bmax=10.0, maxtime=30.0,
               max_ep_len=40)
-    worst = {"rollout": 0.0, "critic": 0.0}
+    worst = {"rollout": 0.0, "critic": 0.0, "critic_bf16": 0.0}
     for a_cnt in (1024, 1000):
         for noisy in (True, False):
             args = _rollout_inputs(a_cnt, 64, noisy, seed=a_cnt + noisy)
@@ -934,6 +1039,25 @@ def phase_ppo_kernels():
             raise RuntimeError(f"critic kernel disagrees with its plain "
                                f"version at iters={iters}")
         worst["critic"] = max(worst["critic"], *errs)
+    f32_theta = got[0]                 # the float32 kernel after 200 iters
+
+    worst["critic_bf16"], _, _ = _hold_critic_bf16(
+        "ragged", _critic_inputs(130, 300, seed=22, hid=30), 30, lr)
+    worst_path, bf16_theta, plain_theta = _hold_critic_bf16(
+        "at the path's shapes", inputs, 100, lr)
+    worst["critic_bf16"] = max(worst["critic_bf16"], worst_path)
+    losses = [_critic_loss(th, inputs[4], inputs[5], 100)
+              for th in (inputs[0], bf16_theta, plain_theta, f32_theta)]
+    ok = abs(losses[1] - losses[2]) <= CRITIC_BF16_LOSS * losses[2]
+    print(f"critic value loss mean((v - ret)^2), A={PPO_AGENTS} "
+          f"T={PPO_STEPS}: start {losses[0]:.6f}; after 200 iterations bf16 "
+          f"kernel {losses[1]:.6f}, plain bf16 {losses[2]:.6f}, float32 "
+          f"kernel {losses[3]:.6f} (bf16 kernel within "
+          f"{CRITIC_BF16_LOSS:g} of plain bf16, relative) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the bf16 critic kernel's value loss is off its "
+                           "plain version's")
 
     # the path's shapes, held step by step as above (one plain pass), then
     # timed; the plain version is warm from the holds, so its one timed
@@ -978,6 +1102,26 @@ def phase_ppo_kernels():
     print(f"timing critic A={a} T={t} iters 200: kernel {runs['kernel']} ms, "
           f"plain {runs['plain']} ms; bound {timings['critic'][2][0]:.3f} ms "
           f"({timings['critic'][2][1]})")
+
+    # the same work through the bf16 kernel: its products against the
+    # tensor-core rate, the rest against the float32 rate
+    runs = {"plain": [], "kernel": []}
+    cb = dict(ck, fast_dot=True)
+    for label, fn, reps in (
+            ("plain", lambda: critic.critic_train_plain(*inputs, **cb), 1),
+            ("kernel", lambda: critic.critic_train_packed(*inputs, **cb), 3),
+            ("kernel", lambda: critic.critic_train_packed(*inputs, **cb), 3),
+            ("plain", lambda: critic.critic_train_plain(*inputs, **cb), 1)):
+        runs[label].append(_time_ms(fn, reps))
+    mac_flops, other_flops = _critic_iter_ops(9, 100, t)
+    timings["critic_bf16"] = (min(runs["kernel"]), min(runs["plain"]), _bound(
+        a * 200 * other_flops, 4 * (6 * a * p + a * t * d + a * t) + 8 * a,
+        bf16_flops=a * 200 * mac_flops))
+    print(f"timing critic bf16 A={a} T={t} iters 200: kernel "
+          f"{runs['kernel']} ms, plain {runs['plain']} ms; bound "
+          f"{timings['critic_bf16'][2][0]:.3f} ms "
+          f"({timings['critic_bf16'][2][1]}); float32 kernel / bf16 kernel "
+          f"{timings['critic'][0] / timings['critic_bf16'][0]:.2f}")
     return worst, timings
 
 
@@ -1001,7 +1145,8 @@ def phase_ppo_path():
         marks.append((name, ev))
 
     ppo.stage_hook = mark
-    rollout.LAUNCHES = critic.LAUNCHES = cuda_jacobi.SYM_AMP_LAUNCHES = 0
+    rollout.LAUNCHES = critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
+    cuda_jacobi.SYM_AMP_LAUNCHES = 0
     for _ in range(2):
         st, out = epoch_fn(st)
         float(out.rewards.sum())
@@ -1014,8 +1159,10 @@ def phase_ppo_path():
         pi_iters.append(float(out.pi_iters.double().mean()))
         float(out.rewards.sum())
     wall = time.perf_counter() - start
-    launches = {"rollout": rollout.LAUNCHES, "critic": critic.LAUNCHES,
+    launches = {"rollout": rollout.LAUNCHES,
+                "critic_bf16": critic.LAUNCHES_BF16,
                 "amp": cuda_jacobi.SYM_AMP_LAUNCHES}
+    f32_launches = critic.LAUNCHES
     torch.cuda.synchronize()
     split = {}
     for (_, a), (name, b) in zip(marks, marks[1:]):
@@ -1029,11 +1176,37 @@ def phase_ppo_path():
                                         split.items())
           + f"; mean pi_iters {pi_iters}; launches over 5 epochs {launches};"
           f" best reward {float(rew.max()):.6f}")
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"the PPO path missed a kernel: {launches}")
+    if min(launches.values()) <= 0 or launches["critic_bf16"] != 5 or \
+            f32_launches != 0:
+        raise RuntimeError(f"the PPO path missed a kernel, or did not take "
+                           f"the bf16 critic kernel once per epoch and that "
+                           f"alone: {launches}, float32 critic kernel "
+                           f"{f32_launches}")
     if not bool(torch.isfinite(rew).all()) or float(rew.min()) < -1e-5 or \
             float(rew.max()) > 1 + 1e-5:
         raise RuntimeError("PPO rewards outside [0, 1]")
+
+    # the float32 critic kernel's path: a full-precision regression from
+    # the final state on the last epoch's visited controllers and rewards
+    obs, rets = out.stores.contiguous(), out.rewards.contiguous()
+    before = _critic_loss(critic.pack_critic(st.params, a_cnt), obs, rets,
+                          100)
+    critic.LAUNCHES = 0
+    params, vf_opt = critic.critic_train(st.params, st.vf_opt, obs, rets,
+                                         iters=200, lr=1e-3, fast_dot=False)
+    torch.cuda.synchronize()
+    launches["critic"] = critic.LAUNCHES
+    theta = critic.pack_critic(params, a_cnt)
+    after = _critic_loss(theta, obs, rets, 100)
+    print(f"float32 critic path: critic_train(fast_dot=False) on the final "
+          f"state, {a_cnt} agents x {t_len} rows, 200 iterations: launches "
+          f"{launches['critic']} (bf16 kernel still "
+          f"{critic.LAUNCHES_BF16}), value loss {before:.6f} -> "
+          f"{after:.6f}")
+    if launches["critic"] != 1 or critic.LAUNCHES_BF16 != 5 or \
+            not torch.equal(vf_opt.count, st.vf_opt.count + 200) or \
+            not bool(torch.isfinite(theta).all()) or not after < before:
+        raise RuntimeError("the float32 critic path failed")
     return launches, rate, split, wall
 
 
@@ -1127,7 +1300,10 @@ def main():
               ppo_ms["rollout"], None),
         entry("critic_train", "code_robchar_tpu/ops/pallas_critic.py:54",
               ppo_launches["critic"], ppo_err["critic"], ppo_ms["critic"],
-              None)]
+              None),
+        entry("critic_train_bf16", "code_robchar_tpu/ops/pallas_critic.py:54",
+              ppo_launches["critic_bf16"], ppo_err["critic_bf16"],
+              ppo_ms["critic_bf16"], None)]
     print(f"summary: build {res.seconds:.2f} s; MC path {wall:.4f} s, "
           f"{rate:.1f} Hams/s, rim_checksum {checksum:.3f}; L-BFGS "
           f"{zoo['lbfgs'][1]:.1f} restarts/s, NM {zoo['nmplus'][1]:.1f} "

@@ -8,8 +8,11 @@ inputs.
 
 TF32 is switched off for both matmul and cuDNN: the reference lost 1e-2
 of gradient accuracy on device when its Daleckii-Krein contractions ran in
-a reduced-precision matmul, so every float32 product in the port runs in
-full float32.
+a reduced-precision matmul, so the float32 products of the port run in
+full float32, the Daleckii-Krein contractions of the Jacobi kernels among
+them.  The one stated exception is the PPO critic regression on the card
+(ops/critic.py ``fast_dot=True``): bfloat16 operands with float32 sums, as
+the JAX package computes it on its device.
 """
 
 from __future__ import annotations

@@ -19,8 +19,11 @@ agent axis written out where the JAX package vmaps):
 3. the KL-gated policy loop: ``torch.bmm`` through autograd and the
    masked Adam of models/optim.py (the JAX package leaves it to XLA);
 4. the critic: ``train_v_iters`` Adam steps in one launch of
-   ``csrc/critic_train.cu`` (ops/critic.py), or an autograd loop with
-   optax's Adam when ``fused_critic=False``.
+   ``csrc/critic_train_bf16.cu`` (ops/critic.py with ``fast_dot=True``:
+   bfloat16 operands and float32 sums on the card's tensor cores, as the
+   JAX package's ``fast_dot=use_pallas`` on its device; full precision on
+   the CPU), or a full-precision autograd loop with optax's Adam when
+   ``fused_critic=False``.
 
 On the CPU the kernels' plain versions run in their place.  All of an
 epoch's randomness comes from agent 0's key, drawn in three batched draws
@@ -500,7 +503,8 @@ class PPO_en:
                 with torch.no_grad():
                     params, vf_opt = critic_ops.critic_train(
                         params, st.vf_opt, obs_af, rets_af,
-                        iters=train_v_iters, lr=vf_lr)
+                        iters=train_v_iters, lr=vf_lr,
+                        fast_dot=dev.type == "cuda")
             else:
                 params, vf_opt = value_regression(
                     params, st.vf_opt, obs_af, rets_af, iters=train_v_iters,

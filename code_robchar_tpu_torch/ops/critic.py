@@ -16,13 +16,25 @@ and Adam corrects the bias as the Pallas kernel does, with
 beta**t; the value differs in the last bits).  The forward, the hand-written backward and Adam are one kernel,
 so no ``autograd.Function`` is needed.
 
+``fast_dot`` names the precision of the products as
+``pallas_critic.critic_train`` does.  With ``fast_dot=True`` both operands
+of each of the nine contractions are rounded to bfloat16 and the sums are
+float32 (the TPU kernel's single-pass matrix unit); h1, h2 in the
+(1 - h^2) factors, the parameters and Adam stay in the run's dtype.  With
+``fast_dot=False`` (the default) every product is full precision.  The PPO
+epoch asks for ``fast_dot=True`` on the card, as the JAX package does on
+its device, and for full precision on the CPU (models/ppo.py).  This is
+the one place where a float32 product of the port is not full float32:
+TF32 stays off (config.py), and the Daleckii-Krein contractions of the
+Jacobi kernels are full float32.
+
 ``critic_train_packed`` sends CPU tensors to the plain version (torch.bmm,
-``critic_train_plain``) and CUDA float32 tensors to the hand-written
-kernel ``csrc/critic_train.cu``; CUDA float64 raises ``ValueError``.  There
-is no fallback.  ``LAUNCHES`` counts the kernel's launches.  All float32
-products run in full float32: the TPU kernel feeds bfloat16 to its matrix
-unit (``fast_dot``); the port keeps TF32 off (config.py) and uses no tensor
-cores here.
+``critic_train_plain``) and CUDA float32 tensors to a hand-written kernel:
+``csrc/critic_train_bf16.cu`` (wgmma on the bf16 tensor cores) for
+``fast_dot=True``, ``csrc/critic_train.cu`` (float32 FMAs) otherwise; CUDA
+float64 raises ``ValueError``.  There is no fallback, from either kernel to
+the other or to the plain version.  ``LAUNCHES`` and ``LAUNCHES_BF16`` count
+the two kernels' launches.
 
 Packed layout, per agent: theta = [W1 (d+1, h), W2 (h+1, h), w3 (h+1)]
 row-major, each Dense kernel with its bias as the last row; the Adam
@@ -43,8 +55,15 @@ from code_robchar_tpu_torch.utils import build
 #: launches of csrc/critic_train.cu in this process (never incremented by
 #: the CPU path)
 LAUNCHES = 0
+#: launches of csrc/critic_train_bf16.cu in this process
+LAUNCHES_BF16 = 0
 #: batch rows per tile of the kernel (mirrors kRows in critic_train.cu)
 ROWS = 16
+#: batch rows per tile of the bf16 kernel (kTileRows in critic_train_bf16.cu)
+ROWS_BF16 = 128
+#: the bf16 kernel's limits: d + 1 inputs in one k16 step, and the hidden
+#: width with its ones column within the 112 columns of its products
+MAX_D1_BF16, MAX_H_BF16 = 16, 111
 
 
 def n_params(d1: int, h: int) -> int:
@@ -59,6 +78,23 @@ def smem_bytes(d1: int, h: int) -> int:
     params = d1 * h + (h + 1) * ld2 + (h + 1)
     tile = ROWS * (d1 + 2 * (h + 1) + 2)
     return 4 * (2 * params + tile)
+
+
+def smem_bytes_bf16(d1: int, h: int) -> int:
+    """Shared memory of one block of the bf16 kernel (smem_bytes in
+    critic_train_bf16.cu): the float32 parameters; the gradient of W1 and
+    W2 in rows of hs floats (the least number >= h that is 8 modulo 16);
+    the bf16 arrays in 8 x 8 core matrices of 128 bytes, the hidden axis
+    padded to 112 (W1 and W2 16 x 14 of them; the 128-row tiles h1a, dz2,
+    dz1 and X 16 x 16, twice 16 x 14 and 16 x 2); 112 rounded w3 and 8 x 112
+    g3 slots in float32."""
+    hs = (h + 7) // 16 * 16 + 8
+    params = -(-4 * n_params(d1, h) // 16) * 16
+    grad = -(-4 * (d1 + h + 1) * hs // 16) * 16
+    weights = 128 * 16 * 14
+    vectors = 4 * 112 * (1 + 8)
+    tiles = 128 * (16 * 16 + 2 * 16 * 14 + 16 * 2)
+    return params + grad + weights + vectors + tiles
 
 
 def _unpack(theta, d1, h):
@@ -76,11 +112,19 @@ def _log_betas(beta1, beta2, dtype=torch.float32):
     return float(np.log(npt(beta1))), float(np.log(npt(beta2)))
 
 
+def _bf16_round(x):
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def critic_train_plain(theta, mu, nu, count, obs, rets, *, h: int,
                        iters: int, lr: float, beta1: float = 0.9,
-                       beta2: float = 0.999, eps: float = 1e-8):
-    """The kernel's arithmetic as torch ops: theta, mu, nu (A, P), count
-    (A,) int32, obs (A, T, d), rets (A, T) -> (theta', mu', nu', count')."""
+                       beta2: float = 0.999, eps: float = 1e-8,
+                       fast_dot: bool = False):
+    """The kernels' arithmetic as torch ops: theta, mu, nu (A, P), count
+    (A,) int32, obs (A, T, d), rets (A, T) -> (theta', mu', nu', count').
+    ``fast_dot`` rounds both operands of each contraction
+    (pallas_critic.py:101-114) to bfloat16 and sums in the run's dtype."""
+    rd = _bf16_round if fast_dot else (lambda y: y)
     a_cnt, t_len, d = obs.shape
     d1 = d + 1
     ones = torch.ones((a_cnt, t_len, 1), dtype=obs.dtype, device=obs.device)
@@ -89,18 +133,22 @@ def critic_train_plain(theta, mu, nu, count, obs, rets, *, h: int,
     lb1, lb2 = _log_betas(beta1, beta2, theta.dtype)
     theta, mu, nu = theta.clone(), mu.clone(), nu.clone()
     w1, w2, w3 = _unpack(theta, d1, h)                 # views of theta
+    xr = rd(x)
     for i in range(iters):
-        h1 = torch.tanh(torch.bmm(x, w1))
-        h1a = torch.cat([h1, ones], dim=2)
-        h2 = torch.tanh(torch.bmm(h1a, w2))
-        h2a = torch.cat([h2, ones], dim=2)
-        v = torch.bmm(h2a, w3)
-        dv = (2.0 / t_len) * (v - ret)
+        w2r, w3r = rd(w2), rd(w3)
+        h1 = torch.tanh(torch.bmm(xr, rd(w1)))
+        h1a = rd(torch.cat([h1, ones], dim=2))
+        h2 = torch.tanh(torch.bmm(h1a, w2r))
+        h2a = rd(torch.cat([h2, ones], dim=2))
+        v = torch.bmm(h2a, w3r)
+        dv = rd((2.0 / t_len) * (v - ret))
         g3 = torch.bmm(h2a.transpose(1, 2), dv)
-        dz2 = dv * w3[:, :h, 0][:, None, :] * (1.0 - h2 * h2)
-        g2 = torch.bmm(h1a.transpose(1, 2), dz2)
-        dz1 = torch.bmm(dz2, w2[:, :h].transpose(1, 2)) * (1.0 - h1 * h1)
-        g1 = torch.bmm(x.transpose(1, 2), dz1)
+        # dh2 = dv wb3^T is a width-1 contraction: one product per element
+        dz2 = dv * w3r[:, :h, 0][:, None, :] * (1.0 - h2 * h2)
+        dz2r = rd(dz2)
+        g2 = torch.bmm(h1a.transpose(1, 2), dz2r)
+        dz1 = torch.bmm(dz2r, w2r[:, :h].transpose(1, 2)) * (1.0 - h1 * h1)
+        g1 = torch.bmm(xr.transpose(1, 2), rd(dz1))
         g = torch.cat([g1.reshape(a_cnt, -1), g2.reshape(a_cnt, -1),
                        g3.reshape(a_cnt, -1)], dim=1)
         t = (count + i + 1).to(theta.dtype)[:, None]
@@ -116,8 +164,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @functools.cache
-def _entry():
-    fn = build.load().critic_train
+def _entry(fast_dot: bool):
+    lib = build.load()
+    fn = lib.critic_train_bf16 if fast_dot else lib.critic_train
     # 10 pointers; d1, h, T, iters; lr, beta1, 1-beta1, beta2, 1-beta2,
     # log beta1, log beta2, eps, 2/T; A, device; stream
     fn.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 9 + [_I] * 2 + [_P]
@@ -125,15 +174,15 @@ def _entry():
     return fn
 
 
-def critic_train_cuda(theta, mu, nu, count, obs, rets, *, h: int, iters: int,
-                      lr: float, beta1: float = 0.9, beta2: float = 0.999,
-                      eps: float = 1e-8):
-    """Launch the kernel on the current stream (not synchronised): float32
-    tensors on one CUDA device, count int32, shapes as the plain
-    version's."""
-    global LAUNCHES
+def check_critic_args(theta, mu, nu, count, obs, rets, *, h: int,
+                      fast_dot: bool = False):
+    """Raise ``ValueError`` on what the kernels do not take, whatever the
+    device: a dtype other than float32 (count: int32), a tensor that is not
+    contiguous, a shape that does not fit the others, and a critic beyond
+    the limits of the kernel that ``fast_dot`` names (the bf16 kernel: at
+    most 15 inputs and a width of 111; both: the state of one agent within
+    a block's shared memory)."""
     floats = dict(theta=theta, mu=mu, nu=nu, obs=obs, rets=rets)
-    cuda_jacobi._check_on_card(count=count, **floats)
     for name, x in floats.items():
         if x.dtype != torch.float32:
             raise ValueError(f"the critic kernel is float32 only; {name} is "
@@ -143,6 +192,8 @@ def critic_train_cuda(theta, mu, nu, count, obs, rets, *, h: int, iters: int,
     for name, x in dict(floats, count=count).items():
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if obs.dim() != 3:
+        raise ValueError(f"obs: expected (A, T, d), got {tuple(obs.shape)}")
     a_cnt, t_len, d = obs.shape
     p = n_params(d + 1, h)
     for name, x, want in (("theta", theta, (a_cnt, p)), ("mu", mu, (a_cnt, p)),
@@ -151,11 +202,31 @@ def critic_train_cuda(theta, mu, nu, count, obs, rets, *, h: int, iters: int,
         if tuple(x.shape) != want:
             raise ValueError(f"{name}: expected shape {want}, got "
                              f"{tuple(x.shape)}")
-    if h < 1 or t_len < 1 or smem_bytes(d + 1, h) > build.SMEM_PER_BLOCK:
+    if fast_dot and (d + 1 > MAX_D1_BF16 or h > MAX_H_BF16):
+        raise ValueError(f"the bf16 critic kernel takes at most "
+                         f"{MAX_D1_BF16 - 1} inputs and a width of "
+                         f"{MAX_H_BF16}; got d={d}, h={h}")
+    need = smem_bytes_bf16(d + 1, h) if fast_dot else smem_bytes(d + 1, h)
+    if h < 1 or t_len < 1 or need > build.SMEM_PER_BLOCK:
         raise ValueError(f"critic of width {h} on {t_len} rows: the "
                          f"parameters and their gradient must fit in one "
-                         f"block's shared memory ({build.SMEM_PER_BLOCK} "
-                         f"bytes)")
+                         f"block's shared memory ({need} of "
+                         f"{build.SMEM_PER_BLOCK} bytes)")
+
+
+def critic_train_cuda(theta, mu, nu, count, obs, rets, *, h: int, iters: int,
+                      lr: float, beta1: float = 0.9, beta2: float = 0.999,
+                      eps: float = 1e-8, fast_dot: bool = False):
+    """Launch a kernel on the current stream (not synchronised): float32
+    tensors on one CUDA device, count int32, shapes as the plain
+    version's.  ``fast_dot`` picks the bf16 tensor-core kernel, which takes
+    d + 1 <= 16 inputs and widths h <= 111."""
+    global LAUNCHES, LAUNCHES_BF16
+    cuda_jacobi._check_on_card(theta=theta, mu=mu, nu=nu, count=count,
+                               obs=obs, rets=rets)
+    check_critic_args(theta, mu, nu, count, obs, rets, h=h,
+                      fast_dot=fast_dot)
+    a_cnt, t_len, d = obs.shape
 
     outs = (torch.empty_like(theta), torch.empty_like(mu),
             torch.empty_like(nu), torch.empty_like(count))
@@ -163,21 +234,25 @@ def critic_train_cuda(theta, mu, nu, count, obs, rets, *, h: int, iters: int,
         return outs
     lb1, lb2 = _log_betas(beta1, beta2)
     dev = obs.device
-    err = _entry()(
+    err = _entry(bool(fast_dot))(
         *(x.data_ptr() for x in (theta, mu, nu, count, obs, rets, *outs)),
         d + 1, h, t_len, int(iters), lr, beta1, 1.0 - beta1, beta2,
         1.0 - beta2, lb1, lb2, eps, 2.0 / t_len, a_cnt, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"critic_train launch failed: CUDA error {err} "
-                           f"(h={h}, T={t_len}, A={a_cnt})")
-    LAUNCHES += 1
+                           f"(h={h}, T={t_len}, A={a_cnt}, "
+                           f"fast_dot={fast_dot})")
+    if fast_dot:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return outs
 
 
 def critic_train_packed(theta, mu, nu, count, obs, rets, **kw):
     """``iters`` Adam steps on packed critics: CPU tensors take the plain
-    version, CUDA tensors the kernel."""
+    version, CUDA tensors the kernel that ``fast_dot`` names."""
     if obs.device.type == "cpu":
         return critic_train_plain(theta, mu, nu, count, obs, rets, **kw)
     return critic_train_cuda(theta, mu, nu, count, obs, rets, **kw)
@@ -205,9 +280,10 @@ def unpack_critic(tree, packed, d1: int, h: int):
 
 def critic_train(params, vf_opt, obs, rets, *, iters: int,
                  lr: float, beta1: float = 0.9, beta2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, fast_dot: bool = False):
     """Run ``iters`` full-batch Adam steps of the critic on (obs (A, T, d),
-    rets (A, T)).  ``params`` is the batched dict of
+    rets (A, T)), with bfloat16 operands and float32 sums in the products
+    when ``fast_dot``.  ``params`` is the batched dict of
     models/actor_critic.py, ``vf_opt`` its models/optim.AdamState.  Returns
     (params', vf_opt') with only the critic leaves and the count advanced
     (pallas_critic.py:198-245)."""
@@ -217,7 +293,7 @@ def critic_train(params, vf_opt, obs, rets, *, iters: int,
         pack_critic(params, a_cnt), pack_critic(vf_opt.mu, a_cnt),
         pack_critic(vf_opt.nu, a_cnt), vf_opt.count.to(torch.int32),
         obs.contiguous(), rets.contiguous(), h=h, iters=iters, lr=lr,
-        beta1=beta1, beta2=beta2, eps=eps)
+        beta1=beta1, beta2=beta2, eps=eps, fast_dot=fast_dot)
     return (unpack_critic(params, theta, d + 1, h),
             vf_opt._replace(count=count.to(vf_opt.count.dtype),
                             mu=unpack_critic(vf_opt.mu, mu, d + 1, h),

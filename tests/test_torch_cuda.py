@@ -1,4 +1,4 @@
-"""The CUDA Jacobi kernels on the card (marker ``cuda``; skipped where
+"""The CUDA kernels on the card (marker ``cuda``; skipped where
 torch.cuda.is_available() is False).  Imports no jax, so it also runs on
 a GPU machine without jax:
 
@@ -232,6 +232,102 @@ def test_critic_kernel_matches_plain_version(dev, hid, t_len):
     assert torch.equal(got[3], count + 7)
 
 
+def _critic_bf16_case(hid, t_len, a_cnt, dev, d=8):
+    rng = np.random.default_rng(hid + t_len + a_cnt)
+    from code_robchar_tpu_torch.ops import critic
+
+    p = critic.n_params(d + 1, hid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.as_tensor(rng.normal(0, 0.2, (a_cnt, p)), **f32),
+            torch.zeros((a_cnt, p), **f32), torch.zeros((a_cnt, p), **f32),
+            torch.as_tensor(rng.integers(0, 5, a_cnt), dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor(rng.normal(size=(a_cnt, t_len, d)), **f32),
+            torch.as_tensor(rng.normal(size=(a_cnt, t_len)), **f32))
+
+
+@pytest.mark.parametrize("a_cnt", [1, 50])
+@pytest.mark.parametrize("hid,t_len", [(100, 500), (20, 37), (30, 64)])
+def test_critic_bf16_kernel_matches_plain_version(dev, hid, t_len, a_cnt):
+    """The bf16 tensor-core kernel against critic_train_plain(
+    fast_dot=True), the bars of chip_smoke.py: one iteration from zero
+    moments reads the gradient (mu = 0.1 g) to 2e-4 of its largest element;
+    after seven, every element within 2 lr iters and the share of elements
+    past atol 2e-6 + rtol 1e-5 at most twice that of the plain version
+    against itself with theta moved one ulp, plus 5e-3."""
+    from code_robchar_tpu_torch.ops import critic
+
+    def share_past(xs, ys):
+        over = sum(int(((x - y).abs() > 2e-6 + 1e-5 * y.abs()).sum())
+                   for x, y in zip(xs, ys))
+        return over / sum(y.numel() for y in ys)
+
+    args = _critic_bf16_case(hid, t_len, a_cnt, dev)
+    before = (critic.LAUNCHES, critic.LAUNCHES_BF16)
+    kw = dict(h=hid, lr=1e-3, fast_dot=True)
+    got = critic.critic_train_packed(*args, iters=1, **kw)
+    want = critic.critic_train_plain(*args, iters=1, **kw)
+    torch.cuda.synchronize()
+    assert (critic.LAUNCHES, critic.LAUNCHES_BF16) == (before[0],
+                                                       before[1] + 1)
+    assert float((got[1] - want[1]).abs().max()) <= \
+        2e-4 * float(want[1].abs().max())
+    assert torch.equal(got[3], args[3] + 1)
+
+    got = critic.critic_train_packed(*args, iters=7, **kw)
+    want = critic.critic_train_plain(*args, iters=7, **kw)
+    moved = torch.nextafter(args[0], torch.full_like(args[0], np.inf))
+    witness = critic.critic_train_plain(moved, *args[1:], iters=7, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g - w).abs().max()) <= 2 * 1e-3 * 7
+    assert share_past(got[:3], want[:3]) <= \
+        2 * share_past(witness[:3], want[:3]) + 5e-3
+    assert torch.equal(got[3], args[3] + 7)
+
+
+@pytest.mark.parametrize("fast_dot", [False, True])
+def test_critic_kernels_copy_state_at_zero_iters(dev, fast_dot):
+    from code_robchar_tpu_torch.ops import critic
+
+    args = list(_critic_bf16_case(30, 64, 5, dev))
+    args[1] = torch.rand_like(args[1])
+    args[2] = torch.rand_like(args[2])
+    got = critic.critic_train_packed(*args, h=30, iters=0, lr=1e-3,
+                                     fast_dot=fast_dot)
+    torch.cuda.synchronize()
+    for g, w in zip(got, args[:4]):
+        assert torch.equal(g, w)
+
+
+def test_critic_bf16_kernel_refuses_what_it_does_not_take(dev):
+    from code_robchar_tpu_torch.ops import critic
+
+    before = critic.LAUNCHES_BF16
+    kw = dict(iters=1, lr=1e-3, fast_dot=True)
+    with pytest.raises(ValueError, match="float32"):
+        critic.critic_train_packed(
+            *(x.double() if x.is_floating_point() else x
+              for x in _critic_bf16_case(20, 37, 2, dev)), h=20, **kw)
+    with pytest.raises(ValueError, match="a width of 111"):
+        critic.critic_train_packed(*_critic_bf16_case(112, 8, 1, dev), h=112,
+                                   **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        critic.critic_train_packed(*_critic_bf16_case(107, 8, 1, dev), h=107,
+                                   **kw)
+    with pytest.raises(ValueError, match="at most 15 inputs"):
+        critic.critic_train_packed(*_critic_bf16_case(16, 8, 1, dev, d=16),
+                                   h=16, **kw)
+    assert critic.LAUNCHES_BF16 == before
+    # the widest critic the kernel takes at 8 inputs
+    args = _critic_bf16_case(106, 40, 2, dev)
+    got = critic.critic_train_packed(*args, h=106, **kw)
+    want = critic.critic_train_plain(*args, h=106, **kw)
+    torch.cuda.synchronize()
+    assert float((got[1] - want[1]).abs().max()) <= \
+        2e-4 * float(want[1].abs().max())
+
+
 def test_ppo_kernels_refuse_float64(dev):
     from code_robchar_tpu_torch.ops import critic, rollout
 
@@ -255,7 +351,9 @@ def test_ppo_kernels_refuse_float64(dev):
 
 def test_ppo_epoch_on_card_matches_cpu(dev):
     """One epoch at N=4, 16 agents, T=16 through the kernels on the card
-    against the plain versions on the CPU, both float32, from one state."""
+    against the plain versions on the CPU, both float32, from one state.
+    On the card the epoch takes the bf16 critic kernel (fast_dot=True) once
+    and the float32 one not at all; on the CPU neither."""
     from code_robchar_tpu_torch.models import PPO_en
     from code_robchar_tpu_torch.ops import critic, rollout
 
@@ -265,9 +363,9 @@ def test_ppo_epoch_on_card_matches_cpu(dev):
         fn = p._build_epoch(16, 0.2, 3e-3, 1e-3, 1000, 3, 3, 0.01)
         return fn(p._init_agent(prng.split(prng.key(1), 16)))
 
-    before = (rollout.LAUNCHES, critic.LAUNCHES)
+    before = (rollout.LAUNCHES, critic.LAUNCHES_BF16, critic.LAUNCHES)
     (_, got), (_, want) = one(dev), one("cpu")
-    assert (rollout.LAUNCHES, critic.LAUNCHES) == (before[0] + 1,
-                                                   before[1] + 1)
+    assert (rollout.LAUNCHES, critic.LAUNCHES_BF16, critic.LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
     err = (got.rewards.cpu() - want.rewards).abs().amax(1)
     assert int((err <= 1e-4).sum()) >= 15, err

@@ -17,6 +17,13 @@ kernels' dispatch on the CPU.
   and the plain kernel against that loop: elements past atol 2e-6 + rtol
   1e-5 at most 1e-5 of all, each within 2 * lr * iters (Adam turns a
   rounding-level sign flip of a tiny gradient into a full lr step).
+- the bfloat16 precision (``fast_dot=True``: both operands of each of the
+  nine contractions rounded to bfloat16, float32 sums): the plain version
+  against pallas_critic._build(fast_dot=True, block=2, interpret=True) at
+  the same shape, packed and through the dict-level entry point; a guard
+  that the rounding is applied and that ``fast_dot=False`` is today's
+  arithmetic bit for bit; and what ``critic_train_cuda(fast_dot=True)``
+  refuses, with the bf16 kernel's shared-memory arithmetic.
 """
 
 import numpy as np
@@ -270,3 +277,229 @@ def test_adam_update_masks_agents():
     assert torch.equal(p2["w"][1], p["w"][1])
     torch.testing.assert_close(p2["w"][0], torch.full((2,), 0.9,
                                                       dtype=torch.float64))
+
+
+def _packed_case(seed, a_cnt=3, t_len=37, d=6, h=16):
+    """Packed critics, moments and a batch from a numpy seed, float32: the
+    shape of the critic tests above (A=3, T=37, d=6), width 16."""
+    rng = np.random.default_rng(seed)
+    p = critic.n_params(d + 1, h)
+    theta = rng.normal(0, 0.3, (a_cnt, p)).astype(F32)
+    mu = rng.normal(0, 1e-3, (a_cnt, p)).astype(F32)
+    nu = rng.uniform(0, 1e-5, (a_cnt, p)).astype(F32)
+    count = rng.integers(0, 5, a_cnt).astype(np.int32)
+    obs = rng.normal(size=(a_cnt, t_len, d)).astype(F32)
+    rets = rng.normal(size=(a_cnt, t_len)).astype(F32)
+    return theta, mu, nu, count, obs, rets
+
+
+def _pallas_packed(theta, mu, nu, count, obs, rets, *, h, iters, lr,
+                   fast_dot):
+    """pallas_critic._build in interpret mode on packed state: the
+    (theta, mu, nu, count) it returns, packed again."""
+    a_cnt, t_len, d = obs.shape
+    d1, tp = d + 1, 128
+    shapes = [(d1, h), (h + 1, h), (h + 1, 1)]
+
+    def split(x):
+        out, at = [], 0
+        for r, c in shapes:
+            out.append(jnp.asarray(x[:, at:at + r * c].reshape(-1, r, c)))
+            at += r * c
+        return out
+
+    obs_aug = np.concatenate([obs, np.ones((a_cnt, t_len, 1), F32)], 2)
+    obs_aug = np.pad(obs_aug, ((0, 1), (0, tp - t_len), (0, 0)))
+    ret = np.pad(rets[..., None], ((0, 1), (0, tp - t_len), (0, 0)))
+
+    def pad(x):       # an even agent count for block=2 (agent 0 again)
+        return jnp.concatenate([x, x[:1]], axis=0)
+
+    run = pallas_critic._build(t_len, tp, d1, h, iters, lr, 0.9, 0.999, 1e-8,
+                               fast_dot, 2, True)
+    out = run(pad(jnp.asarray(count.reshape(-1, 1, 1))),
+              *map(pad, split(theta)), *map(pad, split(mu)),
+              *map(pad, split(nu)), jnp.asarray(obs_aug), jnp.asarray(ret))
+    out = [np.asarray(x)[:a_cnt] for x in out]
+
+    def join(parts):
+        return np.concatenate([x.reshape(a_cnt, -1) for x in parts], 1)
+
+    return join(out[1:4]), join(out[4:7]), join(out[7:10]), out[0].ravel()
+
+
+@pytest.mark.parametrize("iters", [1, 7])
+def test_critic_plain_bf16_matches_pallas_interpret(iters):
+    """critic_train_plain(fast_dot=True) against the Pallas kernel with
+    fast_dot=True in interpret mode.  One iteration: 1e-6 (the roundings
+    are the same, the float32 sums differ in order; ~1e-8 measured).  Seven
+    iterations: a sum that differs in its last bit can land an operand on
+    the other side of a bfloat16 rounding boundary, which moves it by 2^-8
+    of itself, and Adam carries that on: max |dtheta| <= 2e-4 and at most 1%
+    of the elements past atol 2e-6 + rtol 1e-5 (4e-5 and 0.25% measured)."""
+    lr, h = 1e-3, 16
+    case = _packed_case(3)
+    want = _pallas_packed(*case, h=h, iters=iters, lr=lr, fast_dot=True)
+    got = critic.critic_train_plain(*map(torch.as_tensor, case), h=h,
+                                    iters=iters, lr=lr, fast_dot=True)
+    assert got[3].tolist() == (case[3] + iters).tolist() == want[3].tolist()
+    over = total = 0
+    for g, w in zip(got[:3], want[:3]):
+        err = np.abs(g.numpy() - w)
+        if iters == 1:
+            assert err.max() <= 1e-6
+        else:
+            assert err.max() <= 2e-4
+        over += int((err > 2e-6 + 1e-5 * np.abs(w)).sum())
+        total += err.size
+    assert over <= (0 if iters == 1 else 0.01 * total), (over, total)
+
+
+@pytest.mark.parametrize("iters", [1, 7])
+def test_critic_train_bf16_matches_pallas_leaf_for_leaf(iters):
+    """The dict-level entry point with fast_dot=True against
+    pallas_critic.critic_train(fast_dot=True, interpret=True) from one flax
+    tree (params_from_jax), leaf for leaf; the pi leaves untouched bit for
+    bit.  The flax critic is 100 wide, so a sum has six times the terms of
+    the packed case above and more operands sit near a bfloat16 rounding
+    boundary: one iteration agrees to 1e-6 (1.5e-8 measured); after seven,
+    max |d| <= 2e-4 (7.4e-5 measured) and at most 25% of the elements past
+    atol 2e-6 + rtol 1e-5 (11.6% measured: 3e-5 of them after two
+    iterations, 3e-4 after three; the plain version against itself with
+    theta moved one ulp parts on 4%)."""
+    lr = 1e-3
+    model, tx, params, vf_opt, obs, rets = _critic_case(
+        np.random.default_rng(4))
+    want_p, want_opt = pallas_critic.critic_train(
+        params, vf_opt, jnp.asarray(obs), jnp.asarray(rets), iters=iters,
+        lr=lr, fast_dot=True, block=2, interpret=True)
+    p = ac.params_from_jax(params, torch.float32)
+    got_p, got_opt = critic.critic_train(
+        p, _port_opt(vf_opt, torch.float32), torch.as_tensor(obs),
+        torch.as_tensor(rets), iters=iters, lr=lr, fast_dot=True)
+    want_pt = ac.params_from_jax(want_p, torch.float32)
+    want_o = _port_opt(want_opt, torch.float32)
+    over = total = 0
+    for k in p:
+        if k.startswith("pi/"):
+            assert torch.equal(got_p[k], p[k])
+            continue
+        for g, w in ((got_p[k], want_pt[k]), (got_opt.mu[k], want_o.mu[k]),
+                     (got_opt.nu[k], want_o.nu[k])):
+            err = (g - w).abs()
+            assert float(err.max()) <= (1e-6 if iters == 1 else 2e-4), k
+            over += int((err > 2e-6 + 1e-5 * w.abs()).sum())
+            total += err.numel()
+    assert over <= (0 if iters == 1 else 0.25 * total), (over, total)
+    assert got_opt.count.tolist() == [iters] * 3
+
+
+def test_fast_dot_rounds_and_default_is_unchanged():
+    """fast_dot=True really rounds (theta moves by more than 1e-4 against
+    full precision after seven iterations), and fast_dot=False, the
+    default, is the arithmetic the plain version had before the option:
+    spelled out here, bit for bit."""
+    lr, h, iters = 1e-3, 16, 7
+    case = list(map(torch.as_tensor, _packed_case(5)))
+    full = critic.critic_train_plain(*case, h=h, iters=iters, lr=lr)
+    off = critic.critic_train_plain(*case, h=h, iters=iters, lr=lr,
+                                    fast_dot=False)
+    fast = critic.critic_train_plain(*case, h=h, iters=iters, lr=lr,
+                                     fast_dot=True)
+    assert float((fast[0] - full[0]).abs().max()) > 1e-4
+    assert all(torch.equal(x, y) for x, y in zip(full, off))
+
+    theta, mu, nu, count, obs, rets = (x.clone() for x in case)
+    a_cnt, t_len, d = obs.shape
+    ones = torch.ones((a_cnt, t_len, 1))
+    x = torch.cat([obs, ones], 2)
+    lb1, lb2 = critic._log_betas(0.9, 0.999)
+    w1, w2, w3 = critic._unpack(theta, d + 1, h)
+    for i in range(iters):
+        h1 = torch.tanh(torch.bmm(x, w1))
+        h1a = torch.cat([h1, ones], 2)
+        h2 = torch.tanh(torch.bmm(h1a, w2))
+        h2a = torch.cat([h2, ones], 2)
+        dv = (2.0 / t_len) * (torch.bmm(h2a, w3) - rets[..., None])
+        g3 = torch.bmm(h2a.transpose(1, 2), dv)
+        dz2 = dv * w3[:, :h, 0][:, None, :] * (1.0 - h2 * h2)
+        g2 = torch.bmm(h1a.transpose(1, 2), dz2)
+        dz1 = torch.bmm(dz2, w2[:, :h].transpose(1, 2)) * (1.0 - h1 * h1)
+        g1 = torch.bmm(x.transpose(1, 2), dz1)
+        g = torch.cat([g1.reshape(a_cnt, -1), g2.reshape(a_cnt, -1),
+                       g3.reshape(a_cnt, -1)], 1)
+        t = (count + i + 1).to(torch.float32)[:, None]
+        mu = 0.9 * mu + (1.0 - 0.9) * g
+        nu = 0.999 * nu + (1.0 - 0.999) * g * g
+        theta -= lr * ((mu / (1.0 - torch.exp(t * lb1)))
+                       / (torch.sqrt(nu / (1.0 - torch.exp(t * lb2))) + 1e-8))
+    for got, want in zip(full[:3], (theta, mu, nu)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d1", range(5, 12))
+def test_bf16_kernel_smem_arithmetic(d1):
+    """smem_bytes_bf16 is the kernel's layout: the float32 parameters, the
+    gradient of W1 and W2 in rows of hs floats (the least number >= h that
+    is 8 modulo 16: 104 at h=100, 40 at h=30), each rounded up to 16 bytes;
+    bf16 W1 and W2 in 16 x 14 core matrices of 128 bytes; 112 rounded w3
+    and 8 x 112 g3 slots in float32; the h1a, dz2, dz1 and X tiles in
+    16 x 16, twice 16 x 14 and 16 x 2 core matrices.  At h=100 that is one
+    block per SM."""
+    def up16(x):
+        return (x + 15) // 16 * 16
+
+    fixed = 128 * 16 * 14 + 4 * 112 * 9 + 128 * (16 * 16 + 2 * 16 * 14 + 32)
+    for h, hs in ((100, 104), (30, 40)):
+        p = d1 * h + (h + 1) * h + h + 1
+        assert critic.smem_bytes_bf16(d1, h) == (
+            up16(4 * p) + up16(4 * (d1 + h + 1) * hs) + fixed)
+    assert build.SMEM_PER_BLOCK // 2 < critic.smem_bytes_bf16(d1, 100) \
+        <= build.SMEM_PER_BLOCK
+
+
+def test_bf16_kernel_wrapper_refusals():
+    """critic_train_cuda(fast_dot=True) refuses CPU tensors and launches
+    nothing; the checks it makes on a card before a launch
+    (check_critic_args: dtype, layout, shapes, the bf16 kernel's limits
+    and its shared memory) raise on the same tensors here."""
+    kw = dict(h=16, fast_dot=True)
+    case = list(map(torch.as_tensor, _packed_case(6)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        critic.critic_train_cuda(*case, iters=1, lr=1e-3, **kw)
+    assert critic.LAUNCHES_BF16 == 0
+    critic.check_critic_args(*case, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        critic.check_critic_args(*(x.double() if x.is_floating_point() else x
+                                   for x in case), **kw)
+    with pytest.raises(ValueError, match="int32"):
+        critic.check_critic_args(*case[:3], case[3].long(), *case[4:], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        critic.check_critic_args(*case[:4], case[4].transpose(1, 2)
+                                 .contiguous().transpose(1, 2), case[5], **kw)
+    with pytest.raises(ValueError, match="theta: expected shape"):
+        critic.check_critic_args(case[0][:, :-1].contiguous(), *case[1:],
+                                 **kw)
+    with pytest.raises(ValueError, match="rets: expected shape"):
+        critic.check_critic_args(*case[:5], case[5][:, :-1].contiguous(),
+                                 **kw)
+
+    def wide(d, h):
+        z = torch.zeros((1, critic.n_params(d + 1, h)))
+        return (z, z, z, torch.zeros(1, dtype=torch.int32),
+                torch.zeros((1, 4, d)), torch.zeros((1, 4)))
+
+    # the bf16 kernel's limits: one k16 step of inputs, 112 hidden columns,
+    # and a state that fits a block's shared memory: h <= 106 at d + 1 = 9
+    assert critic.smem_bytes_bf16(9, 106) <= build.SMEM_PER_BLOCK
+    assert critic.smem_bytes_bf16(9, 107) > build.SMEM_PER_BLOCK
+    critic.check_critic_args(*wide(8, 106), h=106, fast_dot=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        critic.check_critic_args(*wide(8, 107), h=107, fast_dot=True)
+    with pytest.raises(ValueError, match="a width of 111"):
+        critic.check_critic_args(*wide(8, 112), h=112, fast_dot=True)
+    with pytest.raises(ValueError, match="at most 15 inputs"):
+        critic.check_critic_args(*wide(16, 16), h=16, fast_dot=True)
+    # the float32 kernel has neither limit
+    critic.check_critic_args(*wide(8, 107), h=107)
+    critic.check_critic_args(*wide(16, 16), h=16)
