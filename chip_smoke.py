@@ -30,34 +30,58 @@ Phases:
    (11, 10000), and agree on a 16-controller slice with the float64 plain
    path on the CPU (RIM, std, worst case within 1e-3: float32 rounding of
    phases lam*t up to a few hundred radians).
-4. zoo kernels vs plain: the amplitude and exact-gradient kernels against
-   their plain torch versions on the card (amplitude <= 3e-5; infidelity
-   atol 2e-6 + rtol 1e-5; gradient atol 2e-5 + rtol 1e-4, the bars of
-   tests/test_pallas.py) and against a float64 eigh oracle (fidelity
-   <= 3e-5, gradient <= 1e-4), on random symmetric batches from numpy seed
-   0 (n in {4, 7, 10}, ragged B = 5000, in/out in {(0, n-1), (1, 2)};
-   phases lam*T below ~25 rad, so the oracle bars measure the algorithm
-   rather than float32 rounding of large phases) and on the ring's exactly
-   degenerate spectra at n = 5, 6 (biases of scale 0, 1e-4, 1e-2).  Against
-   the plain versions at the same bars also on the zoo path's first inputs
-   at n = 7 (the L-BFGS lanes' first gradient batch, B = 1024 pool starts
-   across the bounds; the first NM round's batch, the initial simplices of
-   those starts, B = 9216) and on the timed tensors.  Then each timed
-   against its plain version with CUDA events at n = 7: the gradient at
-   B = 1024 (the L-BFGS lane width), the amplitude at B = 9216 (1024 NM
-   lanes x 9 slots), both at B = 131072.
+4. zoo kernels vs plain: every kernel of the amplitude and of the exact
+   gradient (each has two hand-written ones: sym_jacobi_amp and
+   sym_jacobi_grad with one thread per matrix, sym_jacobi_amp_group and
+   sym_jacobi_grad_group with a group of lanes per matrix;
+   ops/cuda_jacobi.py routes a shape to one) against the plain torch
+   versions on the card (amplitude <= 3e-5; infidelity atol 2e-6 + rtol
+   1e-5; gradient atol 2e-5 + rtol 1e-4, the bars of tests/test_pallas.py)
+   and against a float64 eigh oracle (fidelity <= 3e-5, gradient <= 1e-4),
+   on random symmetric batches from numpy seed 0 (n in {4, 7, 10}, ragged
+   B = 5000, in/out in {(0, n-1), (1, 2)}; phases lam*T below ~25 rad, so
+   the oracle bars measure the algorithm rather than float32 rounding of
+   large phases) and on the ring's exactly degenerate spectra at n = 5, 6
+   (biases of scale 0, 1e-4, 1e-2).  Against the plain versions at the same
+   bars also on the zoo path's first inputs at n = 7 (the L-BFGS lanes'
+   first gradient batch, B = 1024 pool starts across the bounds; the first
+   NM round's batch, the initial simplices of those starts, B = 9216) and
+   on the timed tensors.  The written-out fast paths of division and
+   sqrtf in the lane-group kernels' angle chain (csrc/jacobi_common.cuh
+   sym_angles_fast) against `/`, sqrtf and sym_angles through
+   csrc/angles_probe.cu: equal bit for bit wherever the operands are in
+   the ranges the fast paths check.  Then launch_floor_ms, an empty kernel
+   through the kernels' ctypes entry, and every kernel timed at n = 7 and
+   B = 1024 (the L-BFGS lane width), 9216 (1024 NM lanes x 9 slots) and
+   131072 (the lanes of the one-thread gradient kernel's path) with CUDA
+   events, card-paced: 100 launches enqueued behind a ~30 ms spin, so that
+   they run back to back (a launch shorter than the host takes to enqueue
+   it would otherwise read as the host's pace; that host-paced time is
+   printed beside it), with the plain version and the bound, and with eigh
+   at the batches the kernels line reads (LINE_BATCH).
 5. zoo path at full width, the bench.py configuration: LBFGS and NMPlus
    (N=7, 0 -> 6, landscape exploration, float32 on the card), one warm-up
    and three timed _run_batch calls each on 8192-restart pools from
    init_points (keys split from key(5), key(7..9) for L-BFGS; key(15),
    key(16..18) for NM).  Prints the median wall, restarts/s, rounds, trials
-   and host syncs per run and each kernel's launches (must be > 0); every
-   fidelity finite and in [0, 1].  Then one budget-mode LBFGS.run() at
-   N=7 with a 200000-fcall budget: it must end with a non-empty
-   record["controllers"] and func_calls + 1 >= 200000.  Last, both kernels
-   at each optimizer's 8192 end states (T up to 30, fidelities near 1),
-   held with the plain versions against the float64 oracle: each kernel's
-   worst error within the oracle bars or within 3x the plain version's.
+   and host syncs per run and each kernel's launches; every fidelity
+   finite and in [0, 1].  The path must take the kernels its shapes are
+   routed to: the L-BFGS lanes' gradient batches (B = 1024) the lane-group
+   gradient kernel and not the other, the NM rounds (B = 9216) the
+   lane-group amplitude kernel.  Then the one-thread gradient kernel's
+   own path: LBFGS with 131072 lanes (a width that fills the card) takes
+   three iterations on a pool of 131072 restarts; the kernel is first held
+   against the plain version on those starts, then its count is set to 0
+   just before the run.  (The one-thread amplitude kernel's path is phase
+   8: PPO's true fidelities, 512,000 matrices a launch.)  Then one
+   budget-mode
+   LBFGS.run() at N=7 with a 200000-fcall budget: it must end with a
+   non-empty record["controllers"] and func_calls + 1 >= 200000.  Last,
+   the kernels at the optimizers' 8192 end states (T up to 30, fidelities
+   near 1; the lane-group kernels, which that batch is routed to, at both
+   optimizers', the one-thread kernels at L-BFGS's), held with the plain
+   versions against the float64 oracle: each kernel's worst error within
+   the oracle bars or within 3x the plain version's.
 6. zoo outcome gates on the card (float32, kernels): 512 restarts at
    (N, out) in {(4, 2), (5, 2)}, seed 7 — L-BFGS fidelities against
    artifacts/scipy_lbfgs_dist.json (KS < 0.12), NM against
@@ -112,8 +136,12 @@ Phases:
    mean pi_iters and the launches of the amplitude, rollout and bf16
    critic kernels over the five epochs (the last two once per epoch; the
    float32 critic kernel must not be launched: on the card the epoch asks
-   for fast_dot=True); rewards finite and in [0, 1].  Then the float32
-   critic kernel's own path, with its count set to 0 just before:
+   for fast_dot=True); rewards finite and in [0, 1].  Then the one-thread
+   amplitude kernel on the last epoch's own true-fidelity batch (512,000
+   matrices, 4 sweeps, assembled anew from the visited controllers):
+   against the plain version (amplitude <= 3e-5) and against the epoch's
+   own fidelities, and timed there card-paced beside the plain version,
+   eigh and the bound.  Then the float32 critic kernel's own path, with its count set to 0 just before:
    ops.critic.critic_train(fast_dot=False), the entry point of a
    full-precision regression on the card, takes 200 Adam steps from the
    epochs' final state (1024 agents, full width) on the last epoch's
@@ -131,9 +159,12 @@ Phases:
    differ by 4e-6 (the witness): the agents apart by more than 1e-4 over
    all 64 steps may be at most the witness's count or 1%, whichever is
    more, plus 1%.
-10. the kernels JSON line (all six kernels: launches on their paths, the
+10. the kernels JSON line (all eight kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
-    events, bound_ms from this run's shapes and the hand counts of
+    events (the four zoo kernels at the batch of their path: 9216 and
+    1024 for the lane-group ones, 131072 for the one-thread gradient
+    kernel, the PPO epoch's 512,000 for the one-thread amplitude kernel),
+    bound_ms from this run's shapes and the hand counts of
     artifacts/perf/roofline.py:56-99 against 67 TFLOP/s float32 (the bf16
     critic kernel's products against 989 TFLOP/s) and 3.35 TB/s, and
     library_ms: batched torch.linalg.eigh on the same matrices for kernels
@@ -165,6 +196,20 @@ F32_PEAK = 67e12
 HBM_RATE = 3.35e12
 #: its dense bf16 tensor-core rate
 BF16_PEAK = 989e12
+#: cycles of the spin that card-paced timings are enqueued behind (~30 ms)
+SPIN_CYCLES = 50_000_000
+#: both hand-written kernels of each real symmetric function: one thread
+#: per matrix, a group of lanes per matrix
+AMP_KERNELS = ("sym_jacobi_amp", "sym_jacobi_amp_group")
+GRAD_KERNELS = ("sym_jacobi_grad", "sym_jacobi_grad_group")
+#: a lane width above the gradient's route threshold, for the one-thread
+#: gradient kernel's own path
+WIDE_LANES = 131072
+#: the batch of phase 4 whose times go into the kernels line: the one the
+#: kernel's path launches it with (the one-thread amplitude kernel is held
+#: and timed in phase 8 instead, on the PPO epoch's own 512,000 matrices)
+LINE_BATCH = {"sym_jacobi_amp_group": 9216, "sym_jacobi_grad_group": 1024,
+              "sym_jacobi_grad": WIDE_LANES}
 TOL_PPO = 1e-4
 PPO_AGENTS, PPO_STEPS = 1024, 500
 #: the critic kernel against its plain version: per iteration count, the
@@ -278,12 +323,19 @@ def _oracle(ar, ai, t, i, o):
     return (ph.abs() ** 2).numpy()
 
 
-def _time_ms(fn, reps, warm=True):
+def _time_ms(fn, reps, warm=True, behind_spin=False):
+    """Milliseconds per call of ``fn`` between two CUDA events around
+    ``reps`` calls.  With ``behind_spin`` the calls are enqueued behind a
+    spin of ~30 ms on the card, so that they run back to back (card-paced);
+    without it a call shorter than the host takes to enqueue it reads as
+    the host's pace."""
     if warm:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if behind_spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -486,35 +538,90 @@ def _grad_oracle(h0, xs, i, o):
 
 
 def _hold_zoo_kernels(label, a, t, h0, xs, i, o, worst):
-    """Both zoo kernels against their plain versions on the card, at the
-    bars of tests/test_pallas.py: amplitude a (n, n, B), t (B,); gradient
-    h0 (n, n), xs (B', n+1).  Raises on a disagreement or a non-finite
-    value, folds the max abs errors into ``worst`` and returns the kernels'
-    (phr, phi, err, grad)."""
+    """Every kernel of both real symmetric functions (one thread per
+    matrix, a group of lanes per matrix) against the plain versions on the
+    card, at the bars of tests/test_pallas.py: amplitude a (n, n, B),
+    t (B,); gradient h0 (n, n), xs (B', n+1).  Raises on a disagreement or
+    a non-finite value, folds each kernel's max abs errors into ``worst``
+    and returns {kernel: (phr, phi)} and {kernel: (err, grad)}."""
     from code_robchar_tpu_torch.ops import cuda_jacobi, realform
 
-    phr, phi = cuda_jacobi.transfer_amp_sym(a, t, i, o)
     pr, pi = realform.transfer_amp_sym_lanes(a, t, i, o)
-    err, grad = cuda_jacobi.infidelity_and_gradient_sym(h0, xs, i, o)
     perr, pgrad = realform.infidelity_and_gradient_sym_lanes(h0, xs, i, o)
-    e_amp = max(float((phr - pr).abs().max()), float((phi - pi).abs().max()))
-    e_err = float((err - perr).abs().max())
-    e_grad = float((grad - pgrad).abs().max())
-    ok = (all(bool(torch.isfinite(v).all()) for v in (phr, phi, err, grad))
-          and e_amp <= TOL_KERNEL
-          and bool(((err - perr).abs() <= 2e-6 + 1e-5 * perr.abs()).all())
-          and bool(((grad - pgrad).abs()
-                    <= 2e-5 + 1e-4 * pgrad.abs()).all()))
-    print(f"zoo kernels {label} n={a.shape[0]} amp B={a.shape[-1]}, grad "
-          f"B={xs.shape[0]}, in={i} out={o}: amp-plain {e_amp:.3e}, "
-          f"err-plain {e_err:.3e}, grad-plain {e_grad:.3e} "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError(f"zoo kernels disagree with their plain versions "
-                           f"({label} in={i} out={o})")
-    worst["amp"] = max(worst["amp"], e_amp)
-    worst["grad"] = max(worst["grad"], e_grad, e_err)
-    return phr, phi, err, grad
+    amps, grads = {}, {}
+    for kernel in AMP_KERNELS:
+        phr, phi = amps[kernel] = cuda_jacobi.transfer_amp_sym_kernel(
+            kernel, a, t, i, o)
+        e_amp = max(float((phr - pr).abs().max()),
+                    float((phi - pi).abs().max()))
+        ok = (bool(torch.isfinite(phr).all() & torch.isfinite(phi).all())
+              and e_amp <= TOL_KERNEL)
+        print(f"zoo kernel {kernel} {label} n={a.shape[0]} B={a.shape[-1]} "
+              f"in={i} out={o}: amp-plain {e_amp:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{kernel} disagrees with its plain version "
+                               f"({label} in={i} out={o})")
+        worst[kernel] = max(worst[kernel], e_amp)
+    for kernel in GRAD_KERNELS:
+        err, grad = grads[kernel] = \
+            cuda_jacobi.infidelity_and_gradient_sym_kernel(kernel, h0, xs, i,
+                                                           o)
+        e_err = float((err - perr).abs().max())
+        e_grad = float((grad - pgrad).abs().max())
+        ok = (bool(torch.isfinite(err).all() & torch.isfinite(grad).all())
+              and bool(((err - perr).abs() <= 2e-6 + 1e-5 * perr.abs()).all())
+              and bool(((grad - pgrad).abs()
+                        <= 2e-5 + 1e-4 * pgrad.abs()).all()))
+        print(f"zoo kernel {kernel} {label} n={a.shape[0]} B={xs.shape[0]} "
+              f"in={i} out={o}: err-plain {e_err:.3e}, grad-plain "
+              f"{e_grad:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{kernel} disagrees with its plain version "
+                               f"({label} in={i} out={o})")
+        worst[kernel] = max(worst[kernel], e_grad, e_err)
+    return amps, grads
+
+
+def _hold_fast_angles(dev):
+    """The lane-group kernels take a pivot's angles by written-out fast
+    paths of division and sqrtf (csrc/jacobi_common.cuh sym_angles_fast).
+    csrc/angles_probe.cu runs them beside `/`, sqrtf and sym_angles: they
+    must agree bit for bit wherever the operands are in the ranges the fast
+    paths check (the sign of a zero quotient aside, which the angles do not
+    read), on magnitudes spread over 2^-45..2^45 with zeros and equal
+    diagonals among them, and on the entries of standard normal matrices,
+    which must all but be in range."""
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+
+    rng = np.random.default_rng(5)
+    count = 1 << 22
+    wide = (rng.choice([-1.0, 1.0], (3, count)) * rng.uniform(1, 2, (3, count))
+            * 2.0 ** rng.integers(-45, 46, (3, count)))
+    wide[0, ::7] = wide[1, ::7]
+    wide[2, ::11] = 0.0
+    wide[0, ::13] = 0.0
+    for label, x, least in (("wide", wide, 0.3),
+                            ("matrix", rng.normal(size=(3, count)), 0.999)):
+        exact, fast = cuda_jacobi.angles_probe(
+            torch.as_tensor(x.astype(np.float32), device=dev))
+        flags = fast[6].to(torch.int32)
+        same = exact.view(torch.int32) == fast[:6].view(torch.int32)
+        in_range = [(flags & m) != 0 for m in (1, 2, 4)]
+        apart = (int((~same[:4].all(0) & in_range[0]).sum()),
+                 int(((exact[4] != fast[4]) & in_range[1]).sum()),
+                 int((~same[5] & in_range[2]).sum()))
+        shares = [float(r.float().mean()) for r in in_range]
+        ok = apart == (0, 0, 0) and shares[0] >= least and \
+            bool(torch.isfinite(exact[:4]).all())
+        print(f"fast angle paths vs `/`, sqrtf, sym_angles ({label} "
+              f"operands, {count} pivots): in range angles {shares[0]:.4f}, "
+              f"division {shares[1]:.4f}, sqrt {shares[2]:.4f}; differing in "
+              f"any bit there: angles {apart[0]}, division {apart[1]}, sqrt "
+              f"{apart[2]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the fast angle paths differ from IEEE "
+                               "division and sqrtf inside their ranges")
 
 
 def _lanes_of(opt, xs):
@@ -532,28 +639,38 @@ def phase_zoo_kernels():
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    worst = {"amp": 0.0, "grad": 0.0}
+    worst = dict.fromkeys(AMP_KERNELS + GRAD_KERNELS, 0.0)
     cases = [("random", n, *_sym_cases(rng, n, 5000)) for n in (4, 7, 10)]
     cases += [("ring", n, *_ring_cases(rng, n)) for n in (5, 6)]
     for label, n, a, t, h0, xs in cases:
         ga, gt, gh, gx = (torch.as_tensor(x, device=dev)
                           for x in (a, t, h0, xs))
         for i, o in ((0, n - 1), (1, 2)):
-            phr, phi, err, grad = _hold_zoo_kernels(label, ga, gt, gh, gx, i,
-                                                    o, worst)
-            fid = (phr * phr + phi * phi).cpu().numpy()
-            e_fid = float(np.abs(fid - _sym_oracle(a, t, i, o)).max())
+            amps, grads = _hold_zoo_kernels(label, ga, gt, gh, gx, i, o,
+                                            worst)
+            o_fid = _sym_oracle(a, t, i, o)
             oerr, ograd = _grad_oracle(h0, xs, i, o)
-            e_oerr = float(np.abs(err.cpu().numpy() - oerr).max())
-            e_ograd = float(np.abs(grad.cpu().numpy() - ograd).max())
-            ok = (e_fid <= TOL_KERNEL and e_oerr <= TOL_KERNEL
-                  and e_ograd <= TOL_GRAD_ORACLE)
-            print(f"zoo kernels {label} n={n} in={i} out={o} vs f64 eigh: "
-                  f"fid {e_fid:.3e}, err {e_oerr:.3e}, grad {e_ograd:.3e} "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError(f"zoo kernels disagree with the f64 "
-                                   f"oracle ({label} n={n} in={i} out={o})")
+            for kernel, (phr, phi) in amps.items():
+                fid = (phr * phr + phi * phi).cpu().numpy()
+                e_fid = float(np.abs(fid - o_fid).max())
+                ok = e_fid <= TOL_KERNEL
+                print(f"zoo kernel {kernel} {label} n={n} in={i} out={o} vs "
+                      f"f64 eigh: fid {e_fid:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"{kernel} disagrees with the f64 "
+                                       f"oracle ({label} n={n} in={i} "
+                                       f"out={o})")
+            for kernel, (err, grad) in grads.items():
+                e_oerr = float(np.abs(err.cpu().numpy() - oerr).max())
+                e_ograd = float(np.abs(grad.cpu().numpy() - ograd).max())
+                ok = e_oerr <= TOL_KERNEL and e_ograd <= TOL_GRAD_ORACLE
+                print(f"zoo kernel {kernel} {label} n={n} in={i} out={o} vs "
+                      f"f64 eigh: err {e_oerr:.3e}, grad {e_ograd:.3e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"{kernel} disagrees with the f64 "
+                                       f"oracle ({label} n={n} in={i} "
+                                       f"out={o})")
 
     # the zoo path's own first inputs: the L-BFGS lanes' first gradient
     # batch (1024 pool starts across the bounds, T up to 30) and the first
@@ -565,42 +682,66 @@ def phase_zoo_kernels():
     _hold_zoo_kernels("path starts", *_lanes_of(nm, simplices), lb.HH, x0, 0,
                       6, worst)
 
+    _hold_fast_angles(dev)
+
+    # what a launch costs when the kernel does nothing, through the
+    # binding and the call of the kernels: the bound of the gradient at
+    # B = 1024 (0.0002 ms) lies far under it
+    floor = {"card-paced": _time_ms(lambda: cuda_jacobi.launch_floor(dev),
+                                    100, behind_spin=True),
+             "host-paced": _time_ms(lambda: cuda_jacobi.launch_floor(dev),
+                                    100)}
+    print(f"launch_floor_ms (an empty kernel through the kernels' ctypes "
+          f"entry, 100 launches): card-paced "
+          f"{floor['card-paced']:.5f} ms, host-paced "
+          f"{floor['host-paced']:.5f} ms a launch")
+
+    # every kernel at n = 7 and the batches of the paths (1024 L-BFGS
+    # lanes, 9216 = 1024 NM lanes x 9 slots, 131072), card-paced; the
+    # host-paced time and the plain version's beside it
     timings = {}
-    for b_amp, b_grad in ((9216, 1024), (131072, 131072)):
-        a, t, h0, xs = (torch.as_tensor(x, device=dev) for x in
-                        _sym_cases(rng, 7, max(b_amp, b_grad)))
-        a, t, xs = a[..., :b_amp].contiguous(), t[:b_amp], xs[:b_grad]
+    a_all, t_all, h0, xs_all = (torch.as_tensor(x, device=dev) for x in
+                                _sym_cases(rng, 7, 131072))
+    for b in (1024, 9216, 131072):
+        a, t, xs = a_all[..., :b].contiguous(), t_all[:b], xs_all[:b]
         _hold_zoo_kernels("timed", a, t, h0, xs, 0, 6, worst)
-        for name, b, kern, plain in (
-                ("amp", b_amp,
-                 lambda: cuda_jacobi.transfer_amp_sym(a, t, 0, 6),
-                 lambda: realform.transfer_amp_sym_lanes(a, t, 0, 6)),
-                ("grad", b_grad,
-                 lambda: cuda_jacobi.infidelity_and_gradient_sym(h0, xs, 0,
-                                                                 6),
-                 lambda: realform.infidelity_and_gradient_sym_lanes(
-                     h0, xs, 0, 6))):
-            runs = {"plain": [], "kernel": []}
-            for label, fn, reps in (("plain", plain, 3),
-                                    ("kernel", kern, 100),
-                                    ("kernel", kern, 100),
-                                    ("plain", plain, 3)):
-                runs[label].append(_time_ms(fn, reps))
-            if name == "amp":
-                mats = a.permute(2, 0, 1).contiguous()
-                bound = _bound(b * _amp_flops(7, 5), 4 * b * (49 + 1 + 2))
-            else:
-                mats = (h0 + torch.diag_embed(xs[:, :7])).contiguous()
-                bound = _bound(b * _grad_flops(7, 5),
-                               4 * (49 + b * (8 + 1 + 8)))
-            lib_ms, lib = _eigh_ms(mats)
-            timings[name, b] = (min(runs["kernel"]), min(runs["plain"]),
-                                lib_ms, bound)
-            print(f"timing {name} n=7 B={b}: kernel {runs['kernel']} ms, "
-                  f"plain {runs['plain']} ms; torch.linalg.eigh ({lib}, "
-                  f"eigendecomposition only) {lib_ms:.4f} ms; bound "
-                  f"{bound[0]:.5f} ms ({bound[1]})")
-    return worst, timings
+        # the library call only where the kernels line reads it
+        mats = {"amp": lambda: a.permute(2, 0, 1).contiguous(),
+                "grad": lambda: (h0 + torch.diag_embed(xs[:, :7]))
+                .contiguous()}
+        lib = {kind: _eigh_ms(mats[kind]()) if any(
+            LINE_BATCH.get(k) == b for k in names) else (None, "not timed")
+            for kind, names in (("amp", AMP_KERNELS), ("grad", GRAD_KERNELS))}
+        bound = {"amp": _bound(b * _amp_flops(7, 5), 4 * b * (49 + 1 + 2)),
+                 "grad": _bound(b * _grad_flops(7, 5),
+                                4 * (49 + b * (8 + 1 + 8)))}
+        plain = {"amp": lambda: realform.transfer_amp_sym_lanes(a, t, 0, 6),
+                 "grad": lambda: realform.infidelity_and_gradient_sym_lanes(
+                     h0, xs, 0, 6)}
+        plain_ms = {k: min(_time_ms(fn, 3), _time_ms(fn, 3))
+                    for k, fn in plain.items()}
+        kerns = [(k, "amp", lambda k=k: cuda_jacobi.transfer_amp_sym_kernel(
+            k, a, t, 0, 6)) for k in AMP_KERNELS]
+        kerns += [(k, "grad", lambda k=k:
+                   cuda_jacobi.infidelity_and_gradient_sym_kernel(
+                       k, h0, xs, 0, 6)) for k in GRAD_KERNELS]
+        runs = {k: [] for k, _, _ in kerns}
+        host = {}
+        for k, _, fn in kerns + kerns[::-1]:       # one, group, group, one
+            runs[k].append(_time_ms(fn, 100, behind_spin=True))
+            host[k] = _time_ms(fn, 100)
+        routed = {"amp": cuda_jacobi.amp_route(7, b),
+                  "grad": cuda_jacobi.grad_route(7, b)}
+        for k, kind, _ in kerns:
+            timings[k, b] = (min(runs[k]), plain_ms[kind], lib[kind][0],
+                             bound[kind])
+            print(f"timing {k} n=7 B={b}: card-paced {runs[k]} ms, "
+                  f"host-paced {host[k]:.5f} ms, plain {plain_ms[kind]:.3f} "
+                  f"ms; torch.linalg.eigh ({lib[kind][1]}, "
+                  f"eigendecomposition only) {lib[kind][0]} ms; bound "
+                  f"{bound[kind][0]:.5f} ms ({bound[kind][1]}); route at "
+                  f"this shape: {routed[kind]}")
+    return worst, timings, floor
 
 
 def _zoo_optimizer(cls, n=7, out=6, **kw):
@@ -610,15 +751,26 @@ def _zoo_optimizer(cls, n=7, out=6, **kw):
                dtype=torch.float32, **kw)
 
 
+def _zoo_counts():
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+
+    return {"sym_jacobi_amp": cuda_jacobi.SYM_AMP_LAUNCHES,
+            "sym_jacobi_amp_group": cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
+            "sym_jacobi_grad": cuda_jacobi.SYM_GRAD_LAUNCHES,
+            "sym_jacobi_grad_group": cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES}
+
+
 def phase_zoo_path(worst):
     from code_robchar_tpu_torch.models import LBFGS, NMPlus
-    from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+    from code_robchar_tpu_torch.ops import cuda_jacobi, prng, realform
 
     out, ends = {}, {}
     cuda_jacobi.SYM_AMP_LAUNCHES = cuda_jacobi.SYM_GRAD_LAUNCHES = 0
+    cuda_jacobi.SYM_AMP_GROUP_LAUNCHES = 0
+    cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES = 0
     for cls, warm, timed in ((LBFGS, 5, (7, 8, 9)), (NMPlus, 15, (16, 17, 18))):
         opt = _zoo_optimizer(cls)
-        before = (cuda_jacobi.SYM_AMP_LAUNCHES, cuda_jacobi.SYM_GRAD_LAUNCHES)
+        before = _zoo_counts()
 
         def run(seed):
             x0s = torch.as_tensor(opt.init_points(ZOO_POOL),
@@ -639,21 +791,69 @@ def phase_zoo_path(worst):
                     fid.min() < -1e-5 or fid.max() > 1 + 1e-5 or \
                     int(res.nfev.min()) <= 0:
                 raise RuntimeError(f"{cls.name}: bad batch result")
-        amp = cuda_jacobi.SYM_AMP_LAUNCHES - before[0]
-        grad = cuda_jacobi.SYM_GRAD_LAUNCHES - before[1]
+        used = {k: v - before[k] for k, v in _zoo_counts().items()}
         wall = statistics.median(times)
         print(f"zoo path {cls.name}: N=7 pool {ZOO_POOL}, lanes "
               f"{opt.lane_width}; wall {times} s, median {wall:.4f} s, "
               f"{ZOO_POOL / wall:.1f} restarts/s; per run {stats}; launches "
-              f"over 4 runs: amp {amp}, grad {grad}; best fid "
-              f"{fid.max():.6f}")
-        if amp <= 0 or (cls is LBFGS and grad <= 0):
-            raise RuntimeError(f"{cls.name}: the zoo path launched no "
-                               f"kernel (amp {amp}, grad {grad})")
+              f"over 4 runs: {used}; best fid {fid.max():.6f}")
+        # the path must take the kernel its shapes are routed to, and for
+        # the lanes' gradient batches and the NM rounds no other
+        if cls is LBFGS:
+            want = cuda_jacobi.grad_route(7, opt.lane_width)
+            other = GRAD_KERNELS[want == GRAD_KERNELS[0]]
+            taken = used[want] > 0 and used[other] == 0 and \
+                used["sym_jacobi_amp"] + used["sym_jacobi_amp_group"] > 0
+        else:
+            want = cuda_jacobi.amp_route(7, opt.lane_width * 9)
+            taken = used[want] > 0
+        if not taken:
+            raise RuntimeError(f"{cls.name}: the zoo path did not take "
+                               f"{want}, the kernel its shapes are routed "
+                               f"to: {used}")
         out[cls.name] = (wall, ZOO_POOL / wall, stats[0])
         ends[cls.name] = res.x
-    launches = {"amp": cuda_jacobi.SYM_AMP_LAUNCHES,
-                "grad": cuda_jacobi.SYM_GRAD_LAUNCHES}
+    launches = _zoo_counts()
+
+    # the one-thread gradient kernel's own path: L-BFGS lanes wide enough
+    # to fill the card (a pool of WIDE_LANES restarts in WIDE_LANES lanes,
+    # three iterations), with its count set to 0 just before
+    opt = _zoo_optimizer(LBFGS, lane_width=WIDE_LANES, maxiter=3)
+    if cuda_jacobi.grad_route(7, WIDE_LANES) != "sym_jacobi_grad":
+        raise RuntimeError(f"{WIDE_LANES} lanes are not routed to the "
+                           f"one-thread gradient kernel")
+    x0s = torch.as_tensor(opt.init_points(WIDE_LANES), dtype=torch.float32,
+                          device="cuda")
+    got = cuda_jacobi.infidelity_and_gradient_sym_kernel("sym_jacobi_grad",
+                                                         opt.HH, x0s, 0, 6)
+    want = realform.infidelity_and_gradient_sym_lanes(opt.HH, x0s, 0, 6)
+    e_err, e_grad = (float((g - w).abs().max()) for g, w in zip(got, want))
+    ok = all(bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+             for g, w, atol, rtol in zip(got, want, (2e-6, 2e-5),
+                                         (1e-5, 1e-4)))
+    print(f"zoo kernel sym_jacobi_grad at the wide path's starts n=7 "
+          f"B={WIDE_LANES}: err-plain {e_err:.3e}, grad-plain {e_grad:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("sym_jacobi_grad disagrees with its plain version "
+                           "at the wide path's starts")
+    worst["sym_jacobi_grad"] = max(worst["sym_jacobi_grad"], e_err, e_grad)
+    cuda_jacobi.SYM_GRAD_LAUNCHES = 0
+    group_before = cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES
+    start = time.perf_counter()
+    res = opt._run_batch(x0s, prng.split(prng.key(21), WIDE_LANES))
+    fid = res.fid.cpu().numpy()
+    launches["sym_jacobi_grad"] = cuda_jacobi.SYM_GRAD_LAUNCHES
+    print(f"wide L-BFGS path: N=7 pool {WIDE_LANES} in {WIDE_LANES} lanes, "
+          f"maxiter 3: {time.perf_counter() - start:.2f} s, {opt.stats}; "
+          f"sym_jacobi_grad launches {launches['sym_jacobi_grad']} "
+          f"(sym_jacobi_grad_group "
+          f"{cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES - group_before}); best fid "
+          f"{fid.max():.6f}")
+    if launches["sym_jacobi_grad"] <= 0 or not np.isfinite(fid).all() or \
+            fid.min() < -1e-5 or fid.max() > 1 + 1e-5:
+        raise RuntimeError("the wide L-BFGS path failed or launched no "
+                           "one-thread gradient kernel")
 
     # the same configuration with a budget, and fid_threshold 0 so that
     # the first batch's best is recorded (2.0 above never records)
@@ -671,13 +871,18 @@ def phase_zoo_path(worst):
     if not rec.get("controllers") or rec["func_calls"] + 1 < 200_000:
         raise RuntimeError("the budget-mode run did not finish its budget")
 
+    # the routed (lane-group) kernels at both optimizers' end states, the
+    # one-thread kernels at the first's
+    pairs = list(zip(AMP_KERNELS, GRAD_KERNELS))
     for name, xs in ends.items():
-        _hold_zoo_ends(name, opt, xs, worst)
+        _hold_zoo_ends(name, opt, xs, worst, pairs)
+        pairs = pairs[1:]
     return launches, out
 
 
-def _hold_zoo_ends(name, opt, xs, worst):
-    """The zoo kernels at the path's end states: an optimizer's last pool of
+def _hold_zoo_ends(name, opt, xs, worst, pairs):
+    """The zoo kernels ``pairs`` (amplitude kernel, gradient kernel) at the
+    path's end states: an optimizer's last pool of
     results, where T reaches 30, phases lam*T a few hundred radians and
     the best restarts sit near fidelity 1.  There float32 itself misses the
     float64 values by up to ~1e-5 in fidelity and ~1e-4 in gradient (the
@@ -690,31 +895,37 @@ def _hold_zoo_ends(name, opt, xs, worst):
 
     a, t = _lanes_of(opt, xs)
     h0 = opt.HH
-    kern = (cuda_jacobi.fidelity_sym(a, t, 0, 6),
-            *cuda_jacobi.infidelity_and_gradient_sym(h0, xs, 0, 6))
     pr, pi = realform.transfer_amp_sym_lanes(a, t, 0, 6)
     plain = (pr * pr + pi * pi,
              *realform.infidelity_and_gradient_sym_lanes(h0, xs, 0, 6))
     xs_np = xs.cpu().numpy()
     oracle = (_sym_oracle(a.cpu().numpy(), t.cpu().numpy(), 0, 6),
               *_grad_oracle(h0.cpu().numpy(), xs_np, 0, 6))
-    report, ok = [], True
-    for what, k, p, o, bar in zip(
-            ("fid", "err", "grad"), kern, plain, oracle,
-            (TOL_KERNEL, TOL_KERNEL, TOL_GRAD_ORACLE)):
-        e_kp = float((k - p).abs().max())
-        e_k = float(np.abs(k.cpu().numpy() - o).max())
-        e_p = float(np.abs(p.cpu().numpy() - o).max())
-        ok &= bool(torch.isfinite(k).all()) and e_k <= max(bar, 3 * e_p)
-        report.append(f"{what}: kernel-plain {e_kp:.3e}, kernel-f64 "
-                      f"{e_k:.3e}, plain-f64 {e_p:.3e}")
-        worst["amp" if what == "fid" else "grad"] = max(
-            worst["amp" if what == "fid" else "grad"], e_kp)
-    print(f"zoo kernels at the {name} end states (n=7 B={xs.shape[0]}, "
-          f"0->6): " + "; ".join(report) + f" {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError(f"zoo kernels at the {name} end states are less "
-                           f"accurate than the plain versions")
+    for amp_kernel, grad_kernel in pairs:
+        phr, phi = cuda_jacobi.transfer_amp_sym_kernel(amp_kernel, a, t, 0,
+                                                       6)
+        kern = (phr * phr + phi * phi,
+                *cuda_jacobi.infidelity_and_gradient_sym_kernel(
+                    grad_kernel, h0, xs, 0, 6))
+        report, ok = [], True
+        for what, k, p, o, bar in zip(
+                ("fid", "err", "grad"), kern, plain, oracle,
+                (TOL_KERNEL, TOL_KERNEL, TOL_GRAD_ORACLE)):
+            e_kp = float((k - p).abs().max())
+            e_k = float(np.abs(k.cpu().numpy() - o).max())
+            e_p = float(np.abs(p.cpu().numpy() - o).max())
+            ok &= bool(torch.isfinite(k).all()) and e_k <= max(bar, 3 * e_p)
+            report.append(f"{what}: kernel-plain {e_kp:.3e}, kernel-f64 "
+                          f"{e_k:.3e}, plain-f64 {e_p:.3e}")
+            name_k = amp_kernel if what == "fid" else grad_kernel
+            worst[name_k] = max(worst[name_k], e_kp)
+        print(f"zoo kernels {amp_kernel}, {grad_kernel} at the {name} end "
+              f"states (n=7 B={xs.shape[0]}, 0->6): " + "; ".join(report)
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{amp_kernel} or {grad_kernel} at the "
+                               f"{name} end states is less accurate than "
+                               f"the plain version")
 
 
 def _parted(a, b):
@@ -1186,6 +1397,8 @@ def phase_ppo_path():
             float(rew.max()) > 1 + 1e-5:
         raise RuntimeError("PPO rewards outside [0, 1]")
 
+    amp_err, amp_ms = _hold_true_fid_kernel(ppo, out)
+
     # the float32 critic kernel's path: a full-precision regression from
     # the final state on the last epoch's visited controllers and rewards
     obs, rets = out.stores.contiguous(), out.rewards.contiguous()
@@ -1207,7 +1420,58 @@ def phase_ppo_path():
             not torch.equal(vf_opt.count, st.vf_opt.count + 200) or \
             not bool(torch.isfinite(theta).all()) or not after < before:
         raise RuntimeError("the float32 critic path failed")
-    return launches, rate, split, wall
+    return launches, rate, amp_err, amp_ms
+
+
+def _hold_true_fid_kernel(ppo, out):
+    """The one-thread amplitude kernel at the shape and on the inputs its
+    path gives it: the last epoch's 512,000 visited controllers, whose true
+    fidelities the epoch took in one launch (n = 7, 4 sweeps).  The
+    matrices are assembled anew as the epoch assembles them; the kernel
+    must agree with the plain version on them (amplitude <= 3e-5) and
+    reproduce the epoch's own fidelities; then kernel, plain version and
+    torch.linalg.eigh are timed on them.  Returns the max abs error and
+    (ms, plain_ms, library_ms, (bound_ms, bound_by))."""
+    from code_robchar_tpu_torch.ops import cuda_jacobi, realform, rollout
+
+    n, sweeps = 7, ppo.rollout_sweeps
+    stores = out.stores.transpose(0, 1).reshape(-1, n + 1)
+    a = rollout.hamiltonian_lanes(ppo.env.sys.to(torch.float32),
+                                  stores[:, :n].T).contiguous()
+    t = stores[:, n].contiguous()
+    b = t.shape[0]
+
+    def kernel():
+        return cuda_jacobi.transfer_amp_sym_kernel("sym_jacobi_amp", a, t, 0,
+                                                   6, sweeps)
+
+    def plain():
+        return realform.transfer_amp_sym_lanes(a, t, 0, 6, sweeps)
+
+    (phr, phi), (pr, pi) = kernel(), plain()
+    e_amp = max(float((phr - pr).abs().max()), float((phi - pi).abs().max()))
+    e_path = float((phr * phr + phi * phi
+                    - out.true_fids.T.reshape(-1)).abs().max())
+    routed = cuda_jacobi.amp_route(n, b)
+    k_ms = min(_time_ms(kernel, 100, behind_spin=True),
+               _time_ms(kernel, 100, behind_spin=True))
+    p_ms = min(_time_ms(plain, 3), _time_ms(plain, 3))
+    lib_ms, backend = _eigh_ms(a.permute(2, 0, 1).contiguous())
+    bound = _bound(b * _amp_flops(n, sweeps), 4 * b * (n * n + 1 + 2))
+    ok = e_amp <= TOL_KERNEL and e_path <= TOL_KERNEL and \
+        routed == "sym_jacobi_amp" and bool(torch.isfinite(phr).all()
+                                            & torch.isfinite(phi).all())
+    print(f"zoo kernel sym_jacobi_amp on the PPO epoch's true-fidelity batch "
+          f"n={n} B={b} sweeps={sweeps} (route at this shape: {routed}): "
+          f"amp-plain {e_amp:.3e}, fidelity against the epoch's own "
+          f"{e_path:.3e} {'ok' if ok else 'FAIL'}; card-paced {k_ms:.5f} ms, "
+          f"plain {p_ms:.3f} ms, torch.linalg.eigh ({backend}, "
+          f"eigendecomposition only) {lib_ms:.4f} ms, bound {bound[0]:.5f} "
+          f"ms ({bound[1]})")
+    if not ok:
+        raise RuntimeError("sym_jacobi_amp disagrees with its plain version "
+                           "or with the epoch on the PPO path's batch")
+    return e_amp, (k_ms, p_ms, lib_ms, bound)
 
 
 def phase_ppo_checks():
@@ -1263,17 +1527,25 @@ def phase_ppo_checks():
         raise RuntimeError("the PPO epoch on the card disagrees with the CPU")
 
 
+def _run(phase, *args):
+    """Run one phase and print the seconds it took."""
+    start = time.perf_counter()
+    out = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - start:.1f} s")
+    return out
+
+
 def main():
-    smi = phase_device()
-    res = phase_build()
-    err, ms, plain_ms, lib_ms, bound = phase_kernel()
-    launches, wall, rate, checksum = phase_main_path()
-    zoo_err, zoo_ms = phase_zoo_kernels()
-    zoo_launches, zoo = phase_zoo_path(zoo_err)
-    ks = phase_zoo_gates()
-    ppo_err, ppo_ms = phase_ppo_kernels()
-    ppo_launches, ppo_rate, _, _ = phase_ppo_path()
-    phase_ppo_checks()
+    smi = _run(phase_device)
+    res = _run(phase_build)
+    err, ms, plain_ms, lib_ms, bound = _run(phase_kernel)
+    launches, wall, rate, checksum = _run(phase_main_path)
+    zoo_err, zoo_ms, floor = _run(phase_zoo_kernels)
+    zoo_launches, zoo = _run(phase_zoo_path, zoo_err)
+    ks = _run(phase_zoo_gates)
+    ppo_err, ppo_ms = _run(phase_ppo_kernels)
+    ppo_launches, ppo_rate, amp_err, amp_ms = _run(phase_ppo_path)
+    _run(phase_ppo_checks)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -1283,17 +1555,27 @@ def main():
                 "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
-    amp, grad = zoo_ms["amp", 9216], zoo_ms["grad", 1024]
+    def zoo_entry(name, replaces, times=None):
+        # timed at the batch that the kernel's path gives it
+        k_ms, p_ms, lib, bnd = times or zoo_ms[name, LINE_BATCH[name]]
+        return dict(entry(name, replaces, zoo_launches[name], zoo_err[name],
+                          (k_ms, p_ms, bnd), lib),
+                    source=src + name.replace("_group", "") + ".cu")
+
+    amp_at, grad_at = "code_robchar_tpu/ops/pallas_jacobi.py:356", \
+        "code_robchar_tpu/ops/pallas_jacobi.py:408"
+    # the one-thread amplitude kernel: launches, error and times from the
+    # PPO path's own batch (phase 8)
+    zoo_launches["sym_jacobi_amp"] = ppo_launches["amp"]
+    zoo_err["sym_jacobi_amp"] = max(zoo_err["sym_jacobi_amp"], amp_err)
     kernels = [
         entry("herm_jacobi_fidelity",
               "code_robchar_tpu/ops/pallas_jacobi.py:209", launches, err,
               (ms, plain_ms, bound), lib_ms),
-        entry("sym_jacobi_amp", "code_robchar_tpu/ops/pallas_jacobi.py:356",
-              zoo_launches["amp"], zoo_err["amp"],
-              (amp[0], amp[1], amp[3]), amp[2]),
-        entry("sym_jacobi_grad", "code_robchar_tpu/ops/pallas_jacobi.py:408",
-              zoo_launches["grad"], zoo_err["grad"],
-              (grad[0], grad[1], grad[3]), grad[2]),
+        zoo_entry("sym_jacobi_amp_group", amp_at),
+        zoo_entry("sym_jacobi_amp", amp_at, amp_ms),
+        zoo_entry("sym_jacobi_grad_group", grad_at),
+        zoo_entry("sym_jacobi_grad", grad_at),
         entry("actor_env_rollout",
               "code_robchar_tpu/ops/pallas_rollout.py:127",
               ppo_launches["rollout"], ppo_err["rollout"],
@@ -1309,8 +1591,8 @@ def main():
           f"{zoo['lbfgs'][1]:.1f} restarts/s, NM {zoo['nmplus'][1]:.1f} "
           f"restarts/s (N=7, pool {ZOO_POOL}); KS {ks}; PPO "
           f"{ppo_rate:.1f} env-steps/s (N=7, {PPO_AGENTS} agents), "
-          f"amplitude launches on the PPO path {ppo_launches['amp']}; card "
-          f"{smi}")
+          f"one-thread amplitude launches on the PPO path "
+          f"{ppo_launches['amp']}; launch_floor_ms {floor}; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,12 +41,11 @@ def complex_dtype(dtype: torch.dtype = torch.float32) -> torch.dtype:
 def resolve_device(device=None) -> torch.device:
     """The device to compute on.
 
-    ``None`` takes the current CUDA device when one is present and the CPU
-    otherwise.  An explicit CUDA device raises when CUDA is unavailable —
-    it never turns into the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    ``None`` means the current CUDA device, as an explicit ``"cuda"``
+    does.  A CUDA device raises when CUDA is unavailable — it never turns
+    into the CPU; the CPU is taken only when the caller asks for it
+    (``device="cpu"``, as the CPU tests do)."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device} was requested but torch.cuda.is_available() "

@@ -1,7 +1,7 @@
 """CUDA kernels for the batched Jacobi transfer objectives (counterpart of
 code_robchar_tpu/ops/pallas_jacobi.py).
 
-Three dispatches, one per kernel:
+Three dispatches:
 
 - ``fidelity_herm``: the MC engine's split-complex Hermitian fidelity,
   ``csrc/herm_jacobi_fidelity.cu`` (plain version
@@ -14,15 +14,22 @@ Three dispatches, one per kernel:
   ops/realform.infidelity_and_gradient_sym_lanes).
 
 Each sends a CPU tensor to its plain torch version (round-robin order)
-and a CUDA float32 tensor to its hand-written kernel (built by
+and a CUDA float32 tensor to a hand-written kernel (built by
 utils/build.py on first use, bound with ctypes); a CUDA float64 tensor
 raises ``ValueError`` — the kernels, like the TPU kernels they replace,
 are float32 only.
 
+The two real symmetric functions have two hand-written kernels each, and
+``amp_route`` / ``grad_route`` pick one from the shape alone: a group of
+lanes per matrix (``sym_jacobi_amp_group``, ``sym_jacobi_grad_group``)
+for the batches the zoo launches, which leave most of the card empty with
+one thread per matrix, and one thread per matrix (``sym_jacobi_amp``,
+``sym_jacobi_grad``) for batches that fill it.
+
 There is no fallback: a kernel that fails to build or launch raises.
-``LAUNCHES``, ``SYM_AMP_LAUNCHES`` and ``SYM_GRAD_LAUNCHES`` count each
-kernel's launches, so a run can show that its main path went through the
-kernels.
+``LAUNCHES``, ``SYM_AMP_LAUNCHES``, ``SYM_AMP_GROUP_LAUNCHES``,
+``SYM_GRAD_LAUNCHES`` and ``SYM_GRAD_GROUP_LAUNCHES`` count each kernel's
+launches, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,13 +43,32 @@ from code_robchar_tpu_torch.ops import realform
 from code_robchar_tpu_torch.ops.realform import pair_schedule  # noqa: F401
 from code_robchar_tpu_torch.utils import build
 
-#: launches in this process of herm_jacobi_fidelity, sym_jacobi_amp and
-#: sym_jacobi_grad (never incremented by the CPU path)
+#: launches in this process of herm_jacobi_fidelity, sym_jacobi_amp,
+#: sym_jacobi_amp_group, sym_jacobi_grad and sym_jacobi_grad_group (never
+#: incremented by the CPU path)
 LAUNCHES = 0
 SYM_AMP_LAUNCHES = 0
+SYM_AMP_GROUP_LAUNCHES = 0
 SYM_GRAD_LAUNCHES = 0
-#: matrix sizes the kernel is instantiated for
+SYM_GRAD_GROUP_LAUNCHES = 0
+#: matrix sizes the kernels are instantiated for
 MIN_N, MAX_N = 2, 10
+#: smallest n of the lane-group kernels: n = 2 has one pivot a stage, so
+#: its group would be a single lane
+GROUP_MIN_N = 3
+#: largest batch that takes the lane-group kernel: the largest at which it
+#: won in every sweep taken at n = 7 on an NVIDIA H100 80GB HBM3 at 700 W
+#: (tools/profile_jacobi.py --sweep, card-paced ms a launch, one thread per
+#: matrix / lane group): amplitude 0.0266 / 0.0186 at B = 16384, gradient
+#: 0.0515 / 0.0430 at 24576.  One step up the lane group's margin is 6-10%
+#: (amplitude 0.0281 / 0.0263 at 24576, gradient 0.0544 / 0.0494 at 32768)
+#: and an earlier version of the kernels lost there; from 32768 (amplitude)
+#: and 49152 (gradient) on one thread per matrix wins: the card is full,
+#: and the lane groups' replicated update of A costs more than their
+#: shorter chain saves.  Below ~16k matrices one thread each leaves
+#: schedulers empty and the launch lasts as long as one thread's chain.
+AMP_GROUP_MAX_B = 16384
+GRAD_GROUP_MAX_B = 24576
 #: rotation threshold of the float32 kernel (pallas_jacobi.py hard-codes it)
 EPS = realform._eps_for(torch.float32)
 
@@ -52,8 +78,34 @@ _ARGTYPES = {
     # pointers, then n, in_spin, out_spin, sweeps, eps, B, device, stream
     "herm_jacobi_fidelity": [_P] * 4,
     "sym_jacobi_amp": [_P] * 3,
+    "sym_jacobi_amp_group": [_P] * 3,
     "sym_jacobi_grad": [_P] * 4,
+    "sym_jacobi_grad_group": [_P] * 4,
+    "launch_floor": [_P] * 3,
+    "angles_probe": [_P] * 3,
 }
+#: the launch count of each real symmetric kernel
+_COUNTER = {
+    "sym_jacobi_amp": "SYM_AMP_LAUNCHES",
+    "sym_jacobi_amp_group": "SYM_AMP_GROUP_LAUNCHES",
+    "sym_jacobi_grad": "SYM_GRAD_LAUNCHES",
+    "sym_jacobi_grad_group": "SYM_GRAD_GROUP_LAUNCHES",
+}
+
+
+def amp_route(n: int, b: int) -> str:
+    """The amplitude kernel that a batch of ``b`` n x n matrices takes."""
+    if n >= GROUP_MIN_N and b <= AMP_GROUP_MAX_B:
+        return "sym_jacobi_amp_group"
+    return "sym_jacobi_amp"
+
+
+def grad_route(n: int, b: int) -> str:
+    """The exact-gradient kernel that a batch of ``b`` controllers of an
+    n-spin chain takes."""
+    if n >= GROUP_MIN_N and b <= GRAD_GROUP_MAX_B:
+        return "sym_jacobi_grad_group"
+    return "sym_jacobi_grad"
 
 
 @functools.cache
@@ -153,13 +205,22 @@ def fidelity_herm(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
     return fidelity_herm_cuda(ar, ai, t, in_spin, out_spin, sweeps)
 
 
-def transfer_amp_sym_cuda(a: torch.Tensor, t: torch.Tensor, in_spin: int,
-                          out_spin: int, sweeps: int | None = None):
-    """Launch the real symmetric amplitude kernel: a (n, n, B) symmetric
-    (only its lower triangle and diagonal are read), t (B,), contiguous
-    float32 on one CUDA device -> (phr, phi), each (B,), on the current
-    stream, not synchronised."""
-    global SYM_AMP_LAUNCHES
+def _check_route(kernel, routes, n):
+    if kernel not in routes:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {routes}")
+    if kernel.endswith("_group") and n < GROUP_MIN_N:
+        raise ValueError(f"{kernel} is built for n in {GROUP_MIN_N}.."
+                         f"{MAX_N}, got n={n}")
+
+
+def transfer_amp_sym_kernel(kernel: str, a: torch.Tensor, t: torch.Tensor,
+                            in_spin: int, out_spin: int,
+                            sweeps: int | None = None):
+    """Launch the amplitude kernel ``kernel`` ("sym_jacobi_amp" or
+    "sym_jacobi_amp_group") whatever the batch: a (n, n, B) symmetric (only
+    its lower triangle and diagonal are read), t (B,), contiguous float32
+    on one CUDA device -> (phr, phi), each (B,), on the current stream, not
+    synchronised."""
     _check_on_card(a=a, t=t)
     _check_tensors(a=a, t=t)
     n, b = a.shape[0], a.shape[-1]
@@ -167,21 +228,31 @@ def transfer_amp_sym_cuda(a: torch.Tensor, t: torch.Tensor, in_spin: int,
         raise ValueError(f"expected a (n, n, B) and t (B,), got "
                          f"{tuple(a.shape)}, {tuple(t.shape)}")
     _check_sizes(n, in_spin, out_spin)
+    _check_route(kernel, ("sym_jacobi_amp", "sym_jacobi_amp_group"), n)
     amp = torch.empty((2, b), dtype=torch.float32, device=a.device)
     if b:
-        _launch("sym_jacobi_amp", (a, t, amp), n, in_spin, out_spin, sweeps,
-                b)
-        SYM_AMP_LAUNCHES += 1
+        _launch(kernel, (a, t, amp), n, in_spin, out_spin, sweeps, b)
+        globals()[_COUNTER[kernel]] += 1
     return amp[0], amp[1]
 
 
-def infidelity_and_gradient_sym_cuda(h0: torch.Tensor, xs: torch.Tensor,
-                                     in_spin: int, out_spin: int,
-                                     sweeps: int | None = None):
-    """Launch the exact-gradient kernel: h0 (n, n) symmetric, xs (B, n+1),
-    contiguous float32 on one CUDA device -> (err (B,), grad (B, n+1)) on
-    the current stream, not synchronised."""
-    global SYM_GRAD_LAUNCHES
+def transfer_amp_sym_cuda(a: torch.Tensor, t: torch.Tensor, in_spin: int,
+                          out_spin: int, sweeps: int | None = None):
+    """Launch the amplitude kernel that ``amp_route`` picks for the shape
+    of a (n, n, B), t (B,): contiguous float32 on one CUDA device ->
+    (phr, phi), each (B,)."""
+    return transfer_amp_sym_kernel(amp_route(a.shape[0], a.shape[-1]), a, t,
+                                   in_spin, out_spin, sweeps)
+
+
+def infidelity_and_gradient_sym_kernel(kernel: str, h0: torch.Tensor,
+                                       xs: torch.Tensor, in_spin: int,
+                                       out_spin: int,
+                                       sweeps: int | None = None):
+    """Launch the exact-gradient kernel ``kernel`` ("sym_jacobi_grad" or
+    "sym_jacobi_grad_group") whatever the batch: h0 (n, n) symmetric,
+    xs (B, n+1), contiguous float32 on one CUDA device -> (err (B,),
+    grad (B, n+1)) on the current stream, not synchronised."""
     _check_on_card(h0=h0, xs=xs)
     _check_tensors(h0=h0, xs=xs)
     n, b = h0.shape[-1], xs.shape[0]
@@ -189,13 +260,60 @@ def infidelity_and_gradient_sym_cuda(h0: torch.Tensor, xs: torch.Tensor,
         raise ValueError(f"expected h0 (n, n) and xs (B, n+1), got "
                          f"{tuple(h0.shape)}, {tuple(xs.shape)}")
     _check_sizes(n, in_spin, out_spin)
+    _check_route(kernel, ("sym_jacobi_grad", "sym_jacobi_grad_group"), n)
     err = torch.empty(b, dtype=torch.float32, device=xs.device)
     grad = torch.empty((b, n + 1), dtype=torch.float32, device=xs.device)
     if b:
-        _launch("sym_jacobi_grad", (h0, xs, err, grad), n, in_spin, out_spin,
-                sweeps, b)
-        SYM_GRAD_LAUNCHES += 1
+        _launch(kernel, (h0, xs, err, grad), n, in_spin, out_spin, sweeps, b)
+        globals()[_COUNTER[kernel]] += 1
     return err, grad
+
+
+def infidelity_and_gradient_sym_cuda(h0: torch.Tensor, xs: torch.Tensor,
+                                     in_spin: int, out_spin: int,
+                                     sweeps: int | None = None):
+    """Launch the exact-gradient kernel that ``grad_route`` picks for the
+    shape of h0 (n, n), xs (B, n+1): contiguous float32 on one CUDA device
+    -> (err (B,), grad (B, n+1))."""
+    return infidelity_and_gradient_sym_kernel(
+        grad_route(h0.shape[-1], xs.shape[0]), h0, xs, in_spin, out_spin,
+        sweeps)
+
+
+def launch_floor(device) -> None:
+    """Launch the empty kernel of csrc/launch_floor.cu on ``device``
+    through the binding and the call of the kernels above; timed, it is
+    what a launch costs when the kernel does nothing."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"launch_floor needs a CUDA device, got {dev}")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _entry("launch_floor")(None, None, None, 0, 0, 0, 0, 0.0, 0,
+                                 dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"launch_floor failed: CUDA error {err}")
+
+
+def angles_probe(x: torch.Tensor):
+    """csrc/angles_probe.cu on x (3, B), rows app, aqq, apq, contiguous
+    float32 on a CUDA device -> (exact (6, B), fast (7, B)): the angles c,
+    s, t_eff, active of a pivot, app / aqq and sqrt(|apq|), by IEEE
+    division and sqrtf and by the lane-group kernels' written-out fast
+    paths; fast's last row flags where the fast paths' operands are in the
+    ranges they are written for (1 the angles, 2 the division, 4 the square
+    root).  A check of the kernels' arithmetic; no path calls it."""
+    _check_on_card(x=x)
+    _check_tensors(x=x)
+    if x.dim() != 2 or x.shape[0] != 3:
+        raise ValueError(f"expected x (3, B), got {tuple(x.shape)}")
+    b = x.shape[1]
+    exact = torch.empty((6, b), dtype=torch.float32, device=x.device)
+    fast = torch.empty((7, b), dtype=torch.float32, device=x.device)
+    if b:
+        _launch("angles_probe", (x, exact, fast), 0, 0, 0, 0, b)
+    return exact, fast
 
 
 def transfer_amp_sym(a: torch.Tensor, t: torch.Tensor, in_spin: int,

@@ -335,6 +335,49 @@ def infidelity_and_gradient_sym_lanes(h0: torch.Tensor, xs: torch.Tensor,
     return err, torch.cat([grad_bias.T, grad_t[:, None]], dim=1)
 
 
+#: lanes per matrix of the lane-group kernels (kGroupLanes of
+#: csrc/jacobi_common.cuh)
+GROUP_LANES = 4
+
+
+def group_layout(n: int) -> dict:
+    """The compile-time tables of the lane-group kernels
+    (csrc/jacobi_common.cuh ``group_sweeps``, sym_jacobi_amp.cu,
+    sym_jacobi_grad.cu) for n x n matrices, mirrored in Python:
+
+    - ``lanes``: L, the lanes of one matrix: GROUP_LANES, at most one per
+      slot of a stage (M/2 with M = n, or n + 1 when n is odd);
+      ``per_warp``: the matrices of one warp, 32 // L;
+    - ``stages``: per stage, per slot the pivot (p, q), p < q, or None for
+      the slot of the bye, from the kernels' closed form of the
+      circle-method tournament; ``slot_lanes``: slot k -> (lane, register)
+      = (k % L, k // L), the lane that computes its angles;
+    - ``rows``: the gradient kernel's deal of V's rows, row l -> (lane,
+      register row) = (l % L, l // L); the phase factors are dealt alike;
+    - ``pairs``: the pairs (j, k), j <= k, of the Daleckii-Krein
+      contraction in row-major order, and ``pair_lanes``: pair number q ->
+      (lane, register) = (q % L, q // L)."""
+    m = n + (n & 1)
+    slots = m // 2
+    g = min(GROUP_LANES, slots)
+
+    def player(s, j):
+        return 0 if j == 0 else 1 + (j - 1 - s) % (m - 1)
+
+    stages = []
+    for s in range(m - 1):
+        stage = []
+        for k in range(slots):
+            a, b = player(s, k), player(s, m - 1 - k)
+            stage.append(None if max(a, b) >= n else (min(a, b), max(a, b)))
+        stages.append(stage)
+    pairs = [(j, k) for j in range(n) for k in range(j, n)]
+    return {"lanes": g, "per_warp": 32 // g, "stages": stages,
+            "slot_lanes": [(k % g, k // g) for k in range(slots)],
+            "rows": [(l % g, l // g) for l in range(n)], "pairs": pairs,
+            "pair_lanes": [(q % g, q // g) for q in range(len(pairs))]}
+
+
 def _to_lanes(m: torch.Tensor) -> torch.Tensor:
     """(..., n, n) -> (n, n, prod(...)) with the batch last."""
     n = m.shape[-1]

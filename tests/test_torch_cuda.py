@@ -87,18 +87,24 @@ def _sym_batch(n, b, dev, seed=0):
                            (h0 + h0.T) / 2, xs))
 
 
+def _sym_launches():
+    """(amplitude launches, gradient launches), both kernels of each."""
+    return (cuda_jacobi.SYM_AMP_LAUNCHES + cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
+            cuda_jacobi.SYM_GRAD_LAUNCHES
+            + cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES)
+
+
 @pytest.mark.parametrize("n", range(2, 11))
 def test_sym_kernels_match_plain_versions(dev, n):
     a, t, h0, xs = _sym_batch(n, 1000 + n, dev, seed=n)    # ragged tail
-    amp0, grad0 = cuda_jacobi.SYM_AMP_LAUNCHES, cuda_jacobi.SYM_GRAD_LAUNCHES
+    amp0, grad0 = _sym_launches()
     got = cuda_jacobi.transfer_amp_sym(a, t, 0, n - 1)
     want = realform.transfer_amp_sym_lanes(a, t, 0, n - 1)
     err, grad = cuda_jacobi.infidelity_and_gradient_sym(h0, xs, 1 % n, n - 1)
     werr, wgrad = realform.infidelity_and_gradient_sym_lanes(h0, xs, 1 % n,
                                                              n - 1)
     torch.cuda.synchronize()
-    assert cuda_jacobi.SYM_AMP_LAUNCHES == amp0 + 1
-    assert cuda_jacobi.SYM_GRAD_LAUNCHES == grad0 + 1
+    assert _sym_launches() == (amp0 + 1, grad0 + 1)
     for g, w in zip(got, want):
         assert g.shape == t.shape and float((g - w).abs().max()) <= 3e-5
     assert err.shape == (xs.shape[0],) and grad.shape == xs.shape
@@ -106,9 +112,147 @@ def test_sym_kernels_match_plain_versions(dev, n):
     assert bool(((grad - wgrad).abs() <= 2e-5 + 1e-4 * wgrad.abs()).all())
 
 
+def _hold_sym_kernels(amp_kernel, grad_kernel, n, b, dev):
+    a, t, h0, xs = _sym_batch(n, b, dev, seed=n + b)
+    got = cuda_jacobi.transfer_amp_sym_kernel(amp_kernel, a, t, 0, n - 1)
+    want = realform.transfer_amp_sym_lanes(a, t, 0, n - 1)
+    err, grad = cuda_jacobi.infidelity_and_gradient_sym_kernel(
+        grad_kernel, h0, xs, 1 % n, n - 1)
+    werr, wgrad = realform.infidelity_and_gradient_sym_lanes(h0, xs, 1 % n,
+                                                             n - 1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == t.shape and float((g - w).abs().max()) <= 3e-5
+    assert err.shape == (b,) and grad.shape == xs.shape
+    assert bool(((err - werr).abs() <= 2e-6 + 1e-5 * werr.abs()).all())
+    assert bool(((grad - wgrad).abs() <= 2e-5 + 1e-4 * wgrad.abs()).all())
+
+
+@pytest.mark.parametrize("n", range(3, 11))
+def test_group_kernels_match_plain_at_ragged_batches(dev, n):
+    """The lane-group kernels at batches that end inside a warp, inside a
+    group's warp share and on one matrix; every in / out pair of lanes is
+    reached over the sizes."""
+    before = (cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
+              cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES)
+    for b in (1, 7, 33, 1000 + n):
+        _hold_sym_kernels("sym_jacobi_amp_group", "sym_jacobi_grad_group", n,
+                          b, dev)
+    assert (cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
+            cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES) == (before[0] + 4,
+                                                     before[1] + 4)
+
+
+@pytest.mark.parametrize("n", range(2, 11))
+def test_one_thread_kernels_match_plain_at_ragged_batches(dev, n):
+    for b in (1, 7, 33, 1000 + n):
+        _hold_sym_kernels("sym_jacobi_amp", "sym_jacobi_grad", n, b, dev)
+
+
+@pytest.mark.parametrize("spins", [(0, 6), (3, 4), (5, 1), (6, 6), (2, 2)])
+def test_group_kernels_take_every_spin_pair(dev, spins):
+    """in and out rows held by the same lane, by different lanes, in either
+    register row (n = 7: lane l % 4, row l // 4)."""
+    a, t, h0, xs = _sym_batch(7, 300, dev, seed=sum(spins))
+    got = cuda_jacobi.transfer_amp_sym_kernel("sym_jacobi_amp_group", a, t,
+                                              *spins)
+    want = realform.transfer_amp_sym_lanes(a, t, *spins)
+    err, grad = cuda_jacobi.infidelity_and_gradient_sym_kernel(
+        "sym_jacobi_grad_group", h0, xs, *spins)
+    werr, wgrad = realform.infidelity_and_gradient_sym_lanes(h0, xs, *spins)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 3e-5
+    assert bool(((err - werr).abs() <= 2e-6 + 1e-5 * werr.abs()).all())
+    assert bool(((grad - wgrad).abs() <= 2e-5 + 1e-4 * wgrad.abs()).all())
+
+
+@pytest.mark.parametrize("kind", ["amp", "grad"])
+def test_dispatch_takes_the_routed_kernel_on_both_sides(dev, kind):
+    """At the largest batch of the lane-group route and one past it the
+    dispatch launches the kernel that the route function names, and both
+    agree with the plain version."""
+    n = 7
+    edge = cuda_jacobi.AMP_GROUP_MAX_B if kind == "amp" \
+        else cuda_jacobi.GRAD_GROUP_MAX_B
+    names = ("SYM_AMP_LAUNCHES", "SYM_AMP_GROUP_LAUNCHES") if kind == "amp" \
+        else ("SYM_GRAD_LAUNCHES", "SYM_GRAD_GROUP_LAUNCHES")
+    for b, moved in ((edge, (0, 1)), (edge + 1, (1, 0))):
+        a, t, h0, xs = _sym_batch(n, b, dev, seed=b % 1000)
+        before = [getattr(cuda_jacobi, x) for x in names]
+        if kind == "amp":
+            got = cuda_jacobi.transfer_amp_sym(a, t, 0, n - 1)
+            want = realform.transfer_amp_sym_lanes(a, t, 0, n - 1)
+            bars = (3e-5, 0.0)
+        else:
+            got = cuda_jacobi.infidelity_and_gradient_sym(h0, xs, 0, n - 1)
+            want = realform.infidelity_and_gradient_sym_lanes(h0, xs, 0,
+                                                              n - 1)
+            bars = (2e-5, 1e-4)
+        after = [getattr(cuda_jacobi, x) for x in names]
+        assert tuple(y - x for x, y in zip(before, after)) == moved
+        for g, w in zip(got, want):
+            assert bool(((g - w).abs() <= bars[0] + bars[1] * w.abs()).all())
+
+
+def test_group_kernels_refuse_n2(dev):
+    a, t, h0, xs = _sym_batch(2, 16, dev)
+    with pytest.raises(ValueError, match="3..10"):
+        cuda_jacobi.transfer_amp_sym_kernel("sym_jacobi_amp_group", a, t, 0,
+                                            1)
+    with pytest.raises(ValueError, match="3..10"):
+        cuda_jacobi.infidelity_and_gradient_sym_kernel(
+            "sym_jacobi_grad_group", h0, xs, 0, 1)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        cuda_jacobi.transfer_amp_sym_kernel("sym_jacobi_grad", a, t, 0, 1)
+
+
+def test_launch_floor_runs(dev):
+    cuda_jacobi.launch_floor(dev)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_jacobi.launch_floor("cpu")
+
+
+def _pivot_operands(kind, count, seed):
+    """(3, count) float32 rows app, aqq, apq: "wide" has magnitudes spread
+    over 2^-45..2^45 with either sign, exact zeros and equal diagonals
+    among them; "matrix" has the entries of standard normal matrices."""
+    rng = np.random.default_rng(seed)
+    if kind == "matrix":
+        return rng.normal(size=(3, count)).astype(np.float32)
+    x = (rng.choice([-1.0, 1.0], (3, count)) * rng.uniform(1, 2, (3, count))
+         * 2.0 ** rng.integers(-45, 46, (3, count)))
+    x[0, ::7] = x[1, ::7]          # tau = 0
+    x[2, ::11] = 0.0               # nothing to rotate
+    x[0, ::13] = 0.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["wide", "matrix"])
+def test_fast_angle_paths_equal_division_and_sqrtf_bitwise(dev, kind):
+    """div_fast, sqrt_fast and sym_angles_fast of csrc/jacobi_common.cuh
+    give the bits of `/`, sqrtf and sym_angles wherever their operands are
+    in the ranges they check (a zero quotient aside, whose sign the angles
+    do not read); matrix entries of order one are in range."""
+    x = torch.as_tensor(_pivot_operands(kind, 1 << 21, 5), device=dev)
+    exact, fast = cuda_jacobi.angles_probe(x)
+    flags = fast[6].to(torch.int32)
+    same = exact.view(torch.int32) == fast[:6].view(torch.int32)
+    ok_angles, ok_div, ok_sqrt = ((flags & m) != 0 for m in (1, 2, 4))
+    assert bool(same[:4, ok_angles].all())
+    assert bool((exact[4] == fast[4])[ok_div].all())
+    assert bool(same[5, ok_sqrt].all())
+    assert bool(torch.isfinite(exact[:4]).all())
+    share = float(ok_angles.float().mean())
+    assert share > (0.999 if kind == "matrix" else 0.3)
+    assert int(ok_div.sum()) > 0 and int(ok_sqrt.sum()) > 0
+    with pytest.raises(ValueError, match="\\(3, B\\)"):
+        cuda_jacobi.angles_probe(x[:2].contiguous())
+
+
 def test_sym_kernels_refuse_float64_and_odd_layouts(dev):
     a, t, h0, xs = _sym_batch(5, 64, dev)
-    before = (cuda_jacobi.SYM_AMP_LAUNCHES, cuda_jacobi.SYM_GRAD_LAUNCHES)
+    before = _sym_launches()
     with pytest.raises(ValueError, match="float32"):
         cuda_jacobi.transfer_amp_sym(a.double(), t.double(), 0, 4)
     with pytest.raises(ValueError, match="float32"):
@@ -121,8 +265,7 @@ def test_sym_kernels_refuse_float64_and_odd_layouts(dev):
                                                 4)
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_jacobi.transfer_amp_sym(a, t.cpu(), 0, 4)
-    assert (cuda_jacobi.SYM_AMP_LAUNCHES,
-            cuda_jacobi.SYM_GRAD_LAUNCHES) == before
+    assert _sym_launches() == before
     phr, phi = cuda_jacobi.transfer_amp_sym(a[..., :0].contiguous(), t[:0],
                                             0, 4)
     assert phr.shape == phi.shape == (0,)
@@ -144,13 +287,13 @@ def test_optimizers_on_card_match_cpu(dev, cls):
     cpu = cls(4, 0, 2, device="cpu", **kw)
     x0 = gpu.init_points(32)
     keys = prng.split(prng.key(0), 32)
-    launches = (cuda_jacobi.SYM_AMP_LAUNCHES, cuda_jacobi.SYM_GRAD_LAUNCHES)
+    launches = _sym_launches()
     got = gpu._run_batch(torch.as_tensor(x0, dtype=torch.float32,
                                          device=dev), keys)
     want = cpu._run_batch(torch.as_tensor(x0, dtype=torch.float32), keys)
-    assert cuda_jacobi.SYM_AMP_LAUNCHES > launches[0]
+    assert _sym_launches()[0] > launches[0]
     if cls is LBFGS:
-        assert cuda_jacobi.SYM_GRAD_LAUNCHES > launches[1]
+        assert _sym_launches()[1] > launches[1]
     assert got.x.device.type == "cuda"
     dx = (got.x.cpu() - want.x).abs().amax(1)
     assert int((dx <= 1e-3).sum()) >= 28, dx

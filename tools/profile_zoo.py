@@ -2,6 +2,7 @@
 wall goes between the host and the device.
 
     python3 tools/profile_zoo.py [--pool 8192] [--table-dir DIR]
+                                 [--routes-ab PAIRS]
 
 Run from the repository root.  For L-BFGS and Nelder-Mead in chip_smoke.py's
 zoo configuration (N=7, 0 -> 6, landscape exploration, 1024 lanes,
@@ -14,6 +15,15 @@ profiled and of the unprofiled wall, each zoo kernel's launches and mean
 time, and the host ops called most often.  ``--table-dir`` also writes
 each profile's ``key_averages()`` table there.  Prints nothing as a
 device number when the profiler saw no device event.
+
+``--routes-ab PAIRS`` replaces the profiles by an A/B of the zoo kernels'
+two routes inside one process: after a warm-up, PAIRS pairs of unprofiled
+``_run_batch`` calls on one pool of starts and one seed, alternately as
+ops/cuda_jacobi.py routes the shapes (the lane-group kernels) and with the
+route thresholds set to 0 for the call (one thread per matrix), in turns
+group, one, one, group.  It prints every wall and every wall per trial
+(L-BFGS) or per round (NM) with each side's medians: the two routes'
+roundings part the trajectories, so the sides' counts differ a little.
 """
 
 from __future__ import annotations
@@ -87,7 +97,8 @@ def profile(cls, warm: int, timed: int, profiled: int, pool: int,
         print(f"{cls.name}: device busy {busy * 1e3:.1f} ms; idle "
               f"{1 - busy / prof_wall:.4f} of the profiled wall, "
               f"{1 - busy / wall:.4f} of the unprofiled wall")
-        for name in ("sym_jacobi_grad_kernel", "sym_jacobi_amp_kernel"):
+        for name in ("sym_jacobi_grad_kernel", "sym_jacobi_grad_group_kernel",
+                     "sym_jacobi_amp_kernel", "sym_jacobi_amp_group_kernel"):
             ks = [e for e in device if name in e.name]
             if ks:
                 total = sum(e.time_range.elapsed_us() for e in ks)
@@ -108,10 +119,54 @@ def profile(cls, warm: int, timed: int, profiled: int, pool: int,
         print(f"{cls.name}: table -> {path}")
 
 
+def routes_ab(cls, warm: int, seed: int, pool: int, pairs: int) -> None:
+    import contextlib
+    import statistics
+    from unittest import mock
+
+    from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+
+    opt = cls(7, 0, 6, testing=True, fid_threshold=2.0, repeats=10**9,
+              run_until_told_to_stop=True, run_until_completion_its=10**12,
+              landscape_exploration=True, save_topc=64, device="cuda",
+              dtype=torch.float32)
+
+    x0s = torch.as_tensor(opt.init_points(pool), dtype=torch.float32,
+                          device="cuda")
+
+    def run(seed):
+        start = time.perf_counter()
+        res = opt._run_batch(x0s, prng.split(prng.key(seed), pool))
+        float(res.fid.sum())
+        return time.perf_counter() - start
+
+    sides = {
+        "group": contextlib.nullcontext,
+        "one": lambda: mock.patch.multiple(cuda_jacobi, AMP_GROUP_MAX_B=0,
+                                           GRAD_GROUP_MAX_B=0),
+    }
+    run(warm)
+    walls = {side: [] for side in sides}
+    each = {side: [] for side in sides}
+    for i in range(pairs):
+        for side in (list(sides), list(sides)[::-1])[i % 2]:
+            with sides[side]():
+                walls[side].append(run(seed))
+            steps = opt.stats.get("trials", opt.stats["rounds"])
+            each[side].append(walls[side][-1] / steps * 1e3)
+    for side, ws in walls.items():
+        print(f"{cls.name} routes A/B, {side}: walls "
+              f"{[round(w, 4) for w in ws]} s, median "
+              f"{statistics.median(ws):.4f} s; ms per trial (L-BFGS) or "
+              f"round (NM) {[round(x, 4) for x in each[side]]}, median "
+              f"{statistics.median(each[side]):.4f}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pool", type=int, default=8192)
     ap.add_argument("--table-dir", default=None)
+    ap.add_argument("--routes-ab", type=int, default=0, metavar="PAIRS")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_zoo.py needs a CUDA device")
@@ -121,6 +176,10 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.routes_ab:
+        routes_ab(LBFGS, 5, 7, args.pool, args.routes_ab)
+        routes_ab(NMPlus, 15, 16, args.pool, args.routes_ab)
+        return
     profile(LBFGS, 5, 7, 8, args.pool, args.table_dir)
     profile(NMPlus, 15, 16, 17, args.pool, args.table_dir)
 
