@@ -17,8 +17,14 @@ Phases:
    plain torch version on the card (max abs <= 3e-5) and against a float64
    torch.linalg.eigh oracle (<= 3e-5), on random Hermitian batches from
    numpy seed 0 (n in {4, 7, 10}, a ragged B = 5000, the main path's chunk
-   width B = 131000 at n = 7, in/out in {(0, n-1), (1, 2)}); then both
-   timed at n = 7, B = 131072 with CUDA events.
+   width B = 131000 at n = 7, in/out in {(0, n-1), (1, 2)}).  The kernel
+   takes a stage's angles by written-out fast paths of division and sqrtf
+   (csrc/jacobi_common.cuh herm_angles_fast): through
+   csrc/angles_probe.cu they must equal herm_angles, the IEEE arithmetic,
+   bit for bit wherever they report their operands in range, and the share
+   in range is printed (normal entries, A[P][Q] = 0, magnitudes over
+   2^-45..2^45).  Then both timed at n = 7, B = 131072 with CUDA events,
+   the kernel card-paced.
 3. MC path at full size: engine.mc_metric_sweep on the bench.py workload
    (N=7 chain, 10,000 controllers x 11 noise levels x 100 bootstrap reps,
    seed 0, in 0 -> out 6, complex couplings, alpha 0.05): one warm-up with
@@ -99,7 +105,10 @@ Phases:
    fidelities and obs, step by step: each plain step starts from the
    kernel's own carry, since free-running trajectories amplify rounding
    through the accumulated action (at T = 64 that parting is printed
-   beside the plain version against itself with the carry one ulp up).
+   beside the plain version against itself with the carry one ulp up);
+   the same step by step at h = 64 (A = 1000, T = 64, ham_noisy), which
+   takes the generic instance of the kernel (W2 in shared memory) instead
+   of the path's (h = 100, W2 in registers).
    Agents whose raw action or time comes within 1e-5 of a wrap boundary
    may part (a rounding-level difference picks the other branch); they
    are counted, and the phase fails if any other agent parts or more than
@@ -126,8 +135,10 @@ Phases:
    bf16 kernel, the plain bf16 version and the float32 kernel; the bf16
    kernel's within CRITIC_BF16_LOSS (relative) of the plain bf16 version's.
    Then all three kernels timed with CUDA events at the path's shapes
-   (rollout A = 1024, T = 500, sweeps 4, ham_noisy; both critic kernels
-   A = 1024, T = 500, iters 200) against their plain versions.
+   (rollout A = 1024, T = 500, sweeps 4, ham_noisy, card-paced: the
+   instance at h = 100 keeps each thread's column of W2 in registers; both
+   critic kernels A = 1024, T = 500, iters 200) against their plain
+   versions.
 8. PPO path at full width, the bench.py configuration: PPO_en(7, 0, 6,
    ham_noisy, 1024 agents, rollout_sweeps 4, float32 on the card), epochs
    of 500 steps with 200 / 200 pi / v iterations and target_kl 0.01; two
@@ -361,6 +372,47 @@ def _eigh_ms(mats):
             torch.backends.cuda.preferred_linalg_library("default")
 
 
+def _hold_herm_fast_angles(dev):
+    """The Hermitian kernel takes a stage's angles by written-out fast paths
+    of division and sqrtf (csrc/jacobi_common.cuh herm_angles_fast).
+    csrc/angles_probe.cu runs them beside herm_angles, the IEEE arithmetic:
+    no output may differ in any bit where the fast paths report their
+    operands in range.  The share in range is printed for standard normal
+    entries (at least 99.9%), for A[P][Q] = 0 (every pivot an earlier
+    rotation zeroed: all of them) and for magnitudes spread over
+    2^-45..2^45 with zeros and equal diagonals among them."""
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+
+    rng = np.random.default_rng(9)
+    count = 1 << 22
+    normal = rng.normal(size=(4, count))
+    zero = normal.copy()
+    zero[2:] = 0.0
+    wide = (rng.choice([-1.0, 1.0], (4, count)) * rng.uniform(1, 2, (4, count))
+            * 2.0 ** rng.integers(-45, 46, (4, count)))
+    wide[0, ::7] = wide[1, ::7]
+    wide[2, ::11] = 0.0
+    wide[3, ::5] = 0.0
+    wide[0, ::13] = 0.0
+    for label, x, least in (("normal", normal, 0.999), ("r = 0", zero, 1.0),
+                            ("wide", wide, 0.3)):
+        exact, fast = cuda_jacobi.herm_angles_probe(
+            torch.as_tensor(x.astype(np.float32), device=dev))
+        ok = fast[7] != 0
+        same = (exact.view(torch.int32) == fast[:7].view(torch.int32)).all(0)
+        apart = int((~same & ok).sum())
+        share = float(ok.float().mean())
+        good = apart == 0 and share >= least and \
+            bool(torch.isfinite(exact).all())
+        print(f"Hermitian fast angle paths vs herm_angles ({label} operands, "
+              f"{count} pivots): in range {share:.6f} (at least {least:g}); "
+              f"differing in any bit there {apart} "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            raise RuntimeError("the Hermitian fast angle paths differ from "
+                               "IEEE division and sqrtf inside their ranges")
+
+
 def phase_kernel():
     from code_robchar_tpu_torch.ops import cuda_jacobi, realform
 
@@ -387,6 +439,7 @@ def phase_kernel():
                 raise RuntimeError(f"kernel disagrees at n={n} B={b} "
                                    f"in={i} out={o}")
             worst = max(worst, err_plain)
+    _hold_herm_fast_angles(dev)
 
     n, b = 7, 131072
     ar, ai, t = _hermitian_batch(rng, n, b)
@@ -396,18 +449,20 @@ def phase_kernel():
             ("plain", lambda: realform.fidelity_herm_lanes(gar, gai, gt, 0, 6),
              3),
             ("kernel", lambda: cuda_jacobi.fidelity_herm(gar, gai, gt, 0, 6),
-             50),
+             100),
             ("kernel", lambda: cuda_jacobi.fidelity_herm(gar, gai, gt, 0, 6),
-             50),
+             100),
             ("plain", lambda: realform.fidelity_herm_lanes(gar, gai, gt, 0, 6),
              3)):
-        timings.setdefault(label, []).append(_time_ms(fn, reps))
+        timings.setdefault(label, []).append(
+            _time_ms(fn, reps, behind_spin=label == "kernel"))
     ms = min(timings["kernel"])
     plain_ms = min(timings["plain"])
     herm = torch.complex(gar.permute(2, 0, 1), gai.permute(2, 0, 1))
     lib_ms, lib = _eigh_ms(herm.contiguous())
     bound = _bound(b * _herm_flops(n, 5), 4 * b * (2 * n * n + 2))
-    print(f"timing n=7 B=131072: kernel {timings['kernel']} ms, plain "
+    print(f"timing n=7 B=131072: kernel {timings['kernel']} ms "
+          f"(card-paced), plain "
           f"{timings['plain']} ms (min: {ms:.4f} vs {plain_ms:.3f} ms, "
           f"{b / ms / 1e3:.1f} M Hams/s in the kernel); torch.linalg.eigh "
           f"(complex64, {lib}, eigendecomposition only) {lib_ms:.4f} ms; "
@@ -1022,10 +1077,10 @@ def phase_zoo_gates():
     return stats
 
 
-def _rollout_inputs(a_cnt, t_len, ham_noisy, seed):
-    """The rollout kernel's inputs at N=7, h=100 on the card: actor
-    weights from the port's init, carries spread up to the wrap bounds,
-    threefry noise (sigma 0.05 on the Hamiltonian)."""
+def _rollout_inputs(a_cnt, t_len, ham_noisy, seed, hid=100):
+    """The rollout kernel's inputs at N=7, hidden width ``hid`` on the card:
+    actor weights from the port's init, carries spread up to the wrap
+    bounds, threefry noise (sigma 0.05 on the Hamiltonian)."""
     from code_robchar_tpu_torch.models import actor_critic as ac
     from code_robchar_tpu_torch.ops import chain, prng, rollout
 
@@ -1034,7 +1089,7 @@ def _rollout_inputs(a_cnt, t_len, ham_noisy, seed):
     rng = np.random.default_rng(seed)
     f32 = dict(dtype=torch.float32, device=dev)
     params = ac.init_params(prng.split(prng.key(seed), a_cnt).to(dev), d, d,
-                            device=dev)
+                            hidden=(hid, hid), device=dev)
     k_eps, k_zd, k_zn = prng.split(prng.key(seed + 1).to(dev), 3)
     noisy = {}
     if ham_noisy:
@@ -1229,6 +1284,11 @@ def phase_ppo_kernels():
             args = _rollout_inputs(a_cnt, 64, noisy, seed=a_cnt + noisy)
             worst["rollout"] = max(worst["rollout"], _hold_rollout(
                 f"ham_noisy={noisy}", args, dict(kw, ham_noisy=noisy)))
+    # the generic instance (W2 in shared memory) at a width off the path's
+    args = _rollout_inputs(1000, 64, True, seed=3, hid=64)
+    worst["rollout"] = max(worst["rollout"], _hold_rollout(
+        "generic instance h=64, ham_noisy=True", args,
+        dict(kw, ham_noisy=True), free=False))
 
     lr = 1e-3
     inputs = _critic_inputs(PPO_AGENTS, PPO_STEPS, seed=21)
@@ -1280,13 +1340,14 @@ def phase_ppo_kernels():
         "at the path's shapes, ham_noisy=True", args, kwt, free=False))
     runs = {"plain": [], "kernel": []}
     for label, fn, reps, warm in (
-            ("kernel", lambda: rollout.actor_env_rollout(*args, **kwt), 5,
+            ("kernel", lambda: rollout.actor_env_rollout(*args, **kwt), 10,
              True),
-            ("kernel", lambda: rollout.actor_env_rollout(*args, **kwt), 5,
+            ("kernel", lambda: rollout.actor_env_rollout(*args, **kwt), 10,
              True),
             ("plain", lambda: rollout.actor_env_rollout_plain(*args, **kwt),
              1, False)):
-        runs[label].append(_time_ms(fn, reps, warm))
+        runs[label].append(_time_ms(fn, reps, warm,
+                                    behind_spin=label == "kernel"))
     n, h, d, a, t = 7, 100, 8, PPO_AGENTS, PPO_STEPS
     nbytes = 4 * (a * ((d + 1) * h + (h + 1) * h + (h + 1) * d + d)
                   + t * a * (d + n + n - 1) + t * a * (2 * d + 1)
@@ -1295,7 +1356,8 @@ def phase_ppo_kernels():
                           _bound(a * t * _rollout_step_flops(n, h, 4),
                                  nbytes))
     print(f"timing rollout A={a} T={t} sweeps 4: kernel {runs['kernel']} "
-          f"ms, plain {runs['plain']} ms; bound "
+          f"ms (card-paced; launch shape "
+          f"{rollout.launch_shape(n, h)}), plain {runs['plain']} ms; bound "
           f"{timings['rollout'][2][0]:.4f} ms ({timings['rollout'][2][1]})")
 
     runs = {"plain": [], "kernel": []}

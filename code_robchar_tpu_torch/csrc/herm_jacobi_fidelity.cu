@@ -24,14 +24,32 @@
 // Registers can only be addressed with compile-time indices, so the matrix
 // size is a template parameter (n = 2..10) and the circle-method schedule is
 // expanded at compile time into one straight-line sweep body; the sweep
-// count stays a runtime loop.  Many independent threads per SM hide the
-// dependent-chain latency that the TPU kernel hid with round-robin stages.
+// count stays a runtime loop.
+//
+// The dependent chain of a thread is the angle chain of every pivot: r =
+// sqrt(xr^2 + xi^2), the phase and tau by divisions, t by a square root and
+// a division, c by one more of each.  IEEE sqrtf and `/` each end in a
+// range check and a branch, so one pivot's chain is a row of basic blocks
+// that nothing overlaps (78% of a thread's clocks at n = 7, 929 a pivot,
+// measured on the H100 before this design).  The sweep is therefore
+// jacobi::hoisted_sweeps: a stage's angles are taken from the state at the
+// start of the stage, as the Pallas body and the plain version take them
+// (exact: a stage's pivots are disjoint), each by
+// jacobi::herm_angles_fast, the same arithmetic with the fast paths of
+// division and sqrtf written out and one range check for the chain, and
+// placed in the basic block of the previous pivot's rotation, which it
+// overlaps; a pivot with an operand out of the checked ranges takes
+// jacobi::herm_angles, the IEEE arithmetic.  The outputs are those of the
+// per-pivot IEEE chain, bit for bit.  Computing all of a stage's chains
+// before its rotations instead kept three sets of angles live: 168
+// registers, 3 blocks an SM and no faster than the IEEE chain; this way
+// n = 7 takes 128 registers, no spill, 4 blocks of 128 threads an SM.
 //
 // Layout: the JAX lanes layout, (n*n, B) with the batch fastest, so thread b
 // reads ar[r*B + b] — coalesced across a warp.  128 threads per block,
-// ceil(B/128) blocks, masked tail.  Precision: IEEE sqrtf and division,
-// sinf/cosf with full range reduction (lam*t reaches several hundred
-// radians); build without --use_fast_math.
+// ceil(B/128) blocks, masked tail.  Precision: the results of IEEE sqrtf
+// and division, sincosf with full range reduction (lam*t reaches several
+// hundred radians); build without --use_fast_math.
 
 #include <cuda_runtime.h>
 
@@ -52,8 +70,21 @@ struct Herm {
   float vr[2][N];              // rows in, out of V (real)
   float vi[2][N];              // rows in, out of V (imaginary)
 
+  using Angles = jacobi::HermAngles;
+
+  // the angles of the pivot (P, Q), P < Q, from A[P][Q] = conj(A[Q][P])
   template <int P, int Q>
-  __device__ __forceinline__ void rotate(float eps);
+  __device__ __forceinline__ Angles angles_fast(float eps, bool& ok) const {
+    return jacobi::herm_angles_fast(d[P], d[Q], lr[tri(Q, P)],
+                                    -li[tri(Q, P)], eps, ok);
+  }
+  template <int P, int Q>
+  __device__ __forceinline__ Angles angles_exact(float eps) const {
+    return jacobi::herm_angles(d[P], d[Q], lr[tri(Q, P)], -li[tri(Q, P)],
+                               eps);
+  }
+  template <int P, int Q>
+  __device__ __forceinline__ void apply(const Angles& g);
 };
 
 // A[i][j], i != j, from the lower triangle (upper = conjugate mirror)
@@ -82,31 +113,17 @@ __device__ __forceinline__ void set(Herm<N>& h, int i, int j, float re,
   }
 }
 
+// the rotation g at the pivot (P, Q): A <- J^H A J, V <- V J
 template <int N>
 template <int P, int Q>
-__device__ __forceinline__ void Herm<N>::rotate(float eps) {
+__device__ __forceinline__ void Herm<N>::apply(const Angles& g) {
   Herm<N>& h = *this;
   static_assert(0 <= P && P < Q && Q < N, "pivot out of range");
   const float app = h.d[P];
   const float aqq = h.d[Q];
   float xr, xi;
   get<N>(h, P, Q, xr, xi);
-  const float r = sqrtf(xr * xr + xi * xi);
-  const bool active = r > eps * (fabsf(app) + fabsf(aqq) + r);
-  const float safe = active ? r : 1.0f;
-  const float pr = active ? xr / safe : 1.0f;
-  const float pi = active ? xi / safe : 0.0f;
-  const float tau = (aqq - app) / (2.0f * safe);
-  // sign(tau) / (|tau| + sqrt(1 + tau^2)), and t = 1 where tau == 0 (both
-  // signed zeros), as jnp.sign(0) = 0 followed by where(tau == 0, 1, t)
-  const float t = (tau == 0.0f)
-      ? 1.0f
-      : copysignf(1.0f, tau) / (fabsf(tau) + sqrtf(1.0f + tau * tau));
-  float c = 1.0f / sqrtf(1.0f + t * t);
-  float s = t * c;
-  c = active ? c : 1.0f;
-  s = active ? s : 0.0f;
-  const float t_eff = active ? t : 0.0f;
+  const float pr = g.pr, pi = g.pi, c = g.c, s = g.s();
 
   // columns p, q at rows i not in {p, q}; rows p, q follow by symmetry
 #pragma unroll
@@ -129,9 +146,10 @@ __device__ __forceinline__ void Herm<N>::rotate(float eps) {
 
   // closed-form pivot block; inactive lanes keep A[p][q] unchanged and the
   // imaginary diagonal is never stored (it stays exactly zero)
-  h.d[P] = app - t_eff * r;
-  h.d[Q] = aqq + t_eff * r;
-  set<N>(h, P, Q, active ? 0.0f : xr, active ? 0.0f : xi);
+  h.d[P] = app - g.t_eff * g.r;
+  h.d[Q] = aqq + g.t_eff * g.r;
+  set<N>(h, P, Q, g.active ? 0.0f : xr, g.active ? 0.0f : xi);
+  // @phase A update
 
   // carried eigenvector rows: V <- V J
 #pragma unroll
@@ -149,6 +167,7 @@ __device__ __forceinline__ void Herm<N>::rotate(float eps) {
     h.vr[row][Q] = s * tr + c * wqr;
     h.vi[row][Q] = s * ti + c * wqi;
   }
+  // @phase V update
 }
 
 template <int N>
@@ -161,25 +180,26 @@ herm_jacobi_fidelity_kernel(const float* __restrict__ ar,
   const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (b >= B) return;
 
-  Herm<N> h;
+  Herm<N> st;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    h.d[i] = ar[static_cast<int64_t>(i * N + i) * B + b];
+    st.d[i] = ar[static_cast<int64_t>(i * N + i) * B + b];
 #pragma unroll
     for (int j = 0; j < i; ++j) {
-      h.lr[tri(i, j)] = ar[static_cast<int64_t>(i * N + j) * B + b];
-      h.li[tri(i, j)] = ai[static_cast<int64_t>(i * N + j) * B + b];
+      st.lr[tri(i, j)] = ar[static_cast<int64_t>(i * N + j) * B + b];
+      st.li[tri(i, j)] = ai[static_cast<int64_t>(i * N + j) * B + b];
     }
   }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    h.vr[0][k] = (k == in_spin) ? 1.0f : 0.0f;
-    h.vr[1][k] = (k == out_spin) ? 1.0f : 0.0f;
-    h.vi[0][k] = 0.0f;
-    h.vi[1][k] = 0.0f;
+    st.vr[0][k] = (k == in_spin) ? 1.0f : 0.0f;
+    st.vr[1][k] = (k == out_spin) ? 1.0f : 0.0f;
+    st.vi[0][k] = 0.0f;
+    st.vi[1][k] = 0.0f;
   }
 
-  jacobi::jacobi_sweeps<N>(h, sweeps, eps);
+  // @phase(st) load
+  jacobi::hoisted_sweeps<N>(st, sweeps, eps);
 
   // phi = sum_k V[out,k] e^{-i t lam_k} conj(V[in,k])
   const float tb = t[b];
@@ -187,19 +207,22 @@ herm_jacobi_fidelity_kernel(const float* __restrict__ ar,
   float phi = 0.0f;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    const float bir = h.vr[0][k];
-    const float bii = h.vi[0][k];
-    const float aor = h.vr[1][k];
-    const float aoi = h.vi[1][k];
+    const float bir = st.vr[0][k];
+    const float bii = st.vi[0][k];
+    const float aor = st.vr[1][k];
+    const float aoi = st.vi[1][k];
     const float gr = aor * bir + aoi * bii;
     const float gi = aoi * bir - aor * bii;
-    const float ang = h.d[k] * tb;
-    const float fr = cosf(ang);
-    const float fi = -sinf(ang);
+    const float ang = st.d[k] * tb;
+    float sn, fr;
+    sincosf(ang, &sn, &fr);           // both with full range reduction
+    const float fi = -sn;
     phr = phr + gr * fr - gi * fi;
     phi = phi + gr * fi + gi * fr;
   }
+  // @phase(st) amplitude epilogue
   fid[b] = phr * phr + phi * phi;
+  // @phase(st) store
 }
 
 template <int N>

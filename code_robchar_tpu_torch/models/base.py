@@ -223,14 +223,18 @@ class ControlOptimizer:
     def init_points(self, k: int) -> np.ndarray:
         """k starting controllers in bounds: Sobol sequence under landscape
         exploration (qnewton.py:474,483-489), uniform otherwise (in the
-        drift's dtype, the words of jax.random.uniform)."""
+        drift's dtype, the words of jax.random.uniform).  The bounds are in
+        the run's dtype, as the reference's jnp bounds are, so the uniform
+        starts are computed in it (float32 under float32); the Sobol points
+        are float64 and promote the product, as in the reference."""
         if self.landscape_exploration:
             u = self._sobol_stream(k)
         else:
             u = prng.uniform(self.next_key(), (k, self.Nspin + 1),
                              self.dtype).numpy()
-        lo = np.asarray([b[0] for b in self.val_bounds])
-        hi = np.asarray([b[1] for b in self.val_bounds])
+        dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        lo = np.asarray([b[0] for b in self.val_bounds], dtype=dtype)
+        hi = np.asarray([b[1] for b in self.val_bounds], dtype=dtype)
         return lo + (hi - lo) * u
 
     def _sobol_stream(self, k: int) -> np.ndarray:

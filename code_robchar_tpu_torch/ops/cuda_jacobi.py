@@ -83,6 +83,7 @@ _ARGTYPES = {
     "sym_jacobi_grad_group": [_P] * 4,
     "launch_floor": [_P] * 3,
     "angles_probe": [_P] * 3,
+    "herm_angles_probe": [_P] * 3,
 }
 #: the launch count of each real symmetric kernel
 _COUNTER = {
@@ -313,6 +314,26 @@ def angles_probe(x: torch.Tensor):
     fast = torch.empty((7, b), dtype=torch.float32, device=x.device)
     if b:
         _launch("angles_probe", (x, exact, fast), 0, 0, 0, 0, b)
+    return exact, fast
+
+
+def herm_angles_probe(x: torch.Tensor):
+    """csrc/angles_probe.cu's Hermitian probe on x (4, B), rows app, aqq,
+    xr, xi of a pivot, contiguous float32 on a CUDA device -> (exact (7, B),
+    fast (8, B)): pr, pi, c, s, t_eff, r and active of the pivot's
+    rotation by IEEE division and sqrtf (herm_angles) and by the written-out
+    fast paths (herm_angles_fast) of the Hermitian kernel; fast's last row
+    is 1 where the fast paths report their operands in range.  A check of
+    the kernel's arithmetic; no path calls it."""
+    _check_on_card(x=x)
+    _check_tensors(x=x)
+    if x.dim() != 2 or x.shape[0] != 4:
+        raise ValueError(f"expected x (4, B), got {tuple(x.shape)}")
+    b = x.shape[1]
+    exact = torch.empty((7, b), dtype=torch.float32, device=x.device)
+    fast = torch.empty((8, b), dtype=torch.float32, device=x.device)
+    if b:
+        _launch("herm_angles_probe", (x, exact, fast), 0, 0, 0, 0, b)
     return exact, fast
 
 

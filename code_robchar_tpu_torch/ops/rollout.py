@@ -44,14 +44,37 @@ from code_robchar_tpu_torch.utils import build
 #: launches of csrc/actor_env_rollout.cu in this process (never
 #: incremented by the CPU path)
 LAUNCHES = 0
+#: the hidden width of the kernel instance that keeps each thread's column
+#: of W2 in registers (``kRegHidden`` in csrc/actor_env_rollout.cu: the PPO
+#: path's (100, 100) actor); other widths take the generic instance, with
+#: W2 in shared memory
+REG_HIDDEN = 100
+#: threads of a block of that instance, and the blocks an SM holds by its
+#: registers (``kRegThreads``, ``kRegBlocksPerSm``)
+REG_THREADS, REG_BLOCKS_PER_SM = 128, 3
 
 
 def smem_bytes(n: int, hid: int) -> int:
-    """Shared memory of one block of the kernel: the folded weights and
-    two hidden activations, float32, plus the carry and h0."""
+    """Shared memory of one block of the kernel instance that width
+    ``hid`` takes, float32: at ``REG_HIDDEN`` h1, W1, the four warps' partial
+    sums of layer 3 (16 slots each) and h0; at other widths the three
+    folded weights, two hidden activations, the carry and h0."""
     d = n + 1
+    if hid == REG_HIDDEN:
+        return 4 * (hid + (d + 1) * hid + 4 * 16 + n * n)
     dynamic = (d + 1) * hid + (hid + 1) * hid + (hid + 1) * d + 2 * hid
     return 4 * (dynamic + 3 * d + n * n)
+
+
+def launch_shape(n: int, hid: int) -> dict:
+    """How the kernel is launched for n spins and hidden width ``hid``:
+    the instance ("reg": W2 columns in registers, or "generic"), threads a
+    block (one block per agent), and shared memory a block."""
+    if hid == REG_HIDDEN:
+        return dict(instance="reg", threads=REG_THREADS,
+                    smem=smem_bytes(n, hid))
+    threads = min(256, -(-max(hid, n + 1) // 32) * 32)
+    return dict(instance="generic", threads=threads, smem=smem_bytes(n, hid))
 
 
 class RolloutOut(NamedTuple):

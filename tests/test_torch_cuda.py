@@ -250,6 +250,51 @@ def test_fast_angle_paths_equal_division_and_sqrtf_bitwise(dev, kind):
         cuda_jacobi.angles_probe(x[:2].contiguous())
 
 
+def _herm_pivot_operands(kind, count, seed):
+    """(4, count) float32 rows app, aqq, xr, xi of Hermitian pivots:
+    "matrix" standard normal entries; "zero" the same with A[P][Q] = 0, as
+    on every pivot an earlier rotation zeroed; "tiny" an A[P][Q] of
+    2^-75..2^-45, whose |.|^2 lies below 2^-100 or is subnormal; "wide"
+    magnitudes spread over 2^-45..2^45 with either sign, zeros and equal
+    diagonals among them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(4, count))
+    if kind == "zero":
+        x[2:] = 0.0
+    elif kind == "tiny":
+        x[2:] = (rng.choice([-1.0, 1.0], (2, count))
+                 * rng.uniform(1, 2, (2, count))
+                 * 2.0 ** rng.integers(-75, -44, (2, count)))
+    elif kind == "wide":
+        x = (rng.choice([-1.0, 1.0], (4, count))
+             * rng.uniform(1, 2, (4, count))
+             * 2.0 ** rng.integers(-45, 46, (4, count)))
+        x[0, ::7] = x[1, ::7]
+        x[2, ::11] = 0.0
+        x[3, ::5] = 0.0
+        x[0, ::13] = 0.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,least", [("matrix", 0.999), ("zero", 1.0),
+                                        ("tiny", 0.99), ("wide", 0.3)])
+def test_herm_fast_angle_paths_equal_division_and_sqrtf_bitwise(dev, kind,
+                                                                least):
+    """herm_angles_fast of csrc/jacobi_common.cuh gives the bits of
+    herm_angles (IEEE `/` and sqrtf) wherever it reports its operands in
+    range, and the ranges cover matrix entries of order one, zeroed pivots
+    and pivots too small to rotate."""
+    x = torch.as_tensor(_herm_pivot_operands(kind, 1 << 21, 9), device=dev)
+    exact, fast = cuda_jacobi.herm_angles_probe(x)
+    ok = fast[7] != 0
+    same = exact.view(torch.int32) == fast[:7].view(torch.int32)
+    assert bool(same[:, ok].all())
+    assert bool(torch.isfinite(exact).all())
+    assert float(ok.float().mean()) >= least
+    with pytest.raises(ValueError, match="\\(4, B\\)"):
+        cuda_jacobi.herm_angles_probe(x[:3].contiguous())
+
+
 def test_sym_kernels_refuse_float64_and_odd_layouts(dev):
     a, t, h0, xs = _sym_batch(5, 64, dev)
     before = _sym_launches()
@@ -329,8 +374,12 @@ def _rollout_case(n, hid, a_cnt, t_len, dev, seed=0):
 
 
 @pytest.mark.parametrize("n,hid,ham_noisy", [(2, 16, True), (4, 16, False),
-                                             (7, 100, True), (10, 40, True)])
+                                             (7, 100, True), (10, 40, True),
+                                             (3, 100, False), (10, 100, True),
+                                             (7, 64, True)])
 def test_rollout_kernel_matches_plain_version(dev, n, hid, ham_noisy):
+    """Both instances: h = 100 keeps W2 in registers (outputs reduced over
+    4, 8 or 16 slots at n = 3, 7, 10), the other widths the generic one."""
     from code_robchar_tpu_torch.ops import rollout
 
     args = _rollout_case(n, hid, 70, 20, dev, seed=n)

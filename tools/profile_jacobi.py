@@ -1,8 +1,11 @@
-"""Where the clocks of the zoo's two Jacobi kernels go, phase by phase, and
-how much of the card a launch occupies, on one CUDA card.
+"""Where the clocks of the Jacobi kernels go, phase by phase, and how much
+of the card a launch occupies, on one CUDA card.
 
     python3 tools/profile_jacobi.py [--n 7] [--routes one,group]
         [--amp-b 9216] [--grad-b 1024] [--sweep]
+    python3 tools/profile_jacobi.py --herm [--n 7] [--herm-b 131072]
+        [--parent DIR] [--mc-chunks 3]
+    python3 tools/profile_jacobi.py --eigh 1024,9216,131072 [--n 7]
 
 Run from the repository root.  csrc/jacobi_common.cuh, sym_jacobi_amp.cu
 and sym_jacobi_grad.cu mark the end of each phase of their work with a
@@ -28,6 +31,25 @@ of ~30 ms, so that they run back to back) — beside an empty kernel's
 then times both routes of both kernels card-paced at batches from 1024 to
 131072: the crossover sets the route thresholds AMP_GROUP_MAX_B and
 GRAD_GROUP_MAX_B of ops/cuda_jacobi.py.
+
+With ``--herm`` it does the same for the MC path's Hermitian kernel
+(csrc/herm_jacobi_fidelity.cu, one thread per matrix) at n = 7 and the
+path's chunk, B = 131072: registers, clocks by phase, the card's
+occupancy (blocks per SM from the registers, waves of 128-thread
+blocks), and the share of pivots whose angle chain left the fast paths'
+ranges and took the exact one (a ``// @fallback`` line in
+csrc/jacobi_common.cuh becomes a count), on random Hermitian matrices
+and on ``--mc-chunks`` chunks spread over the MC headline sweep itself
+(N=7, 10,000 controllers x 11 noise levels x 100 bootreps, seed 0).
+``--parent DIR`` also builds the kernel from DIR's
+code_robchar_tpu_torch/csrc (a checkout of another commit, e.g. from
+``git archive``) and holds the two bit for bit on the same inputs (the
+share of equal outputs, and the largest difference where they differ),
+then times both card-paced in turns parent, tree, tree, parent.
+
+``--eigh B,...`` times one batched torch.linalg.eigh of B random real
+symmetric float32 n x n matrices at each batch: the library yardstick of
+the zoo kernels at the batches their paths launch.
 
 The readings cost clocks and registers and may move the compiler's
 schedule (arithmetic of the next phase can start before a reading): read
@@ -66,6 +88,7 @@ PROLOGUE = """
 #define JPROF_ST(k) do { long long c_ = clock64(); \\
     st.pacc[k] += c_ - st.plast; st.plast = c_; } while (0)
 __device__ long long g_prof[JPROF_PHASES];
+__device__ unsigned long long g_exact[2];   // pivots, warps' pivots
 __device__ unsigned g_smid[JPROF_MAX_BLOCKS];
 template <class State>
 __device__ __forceinline__ void jprof_begin(State& st) {
@@ -97,6 +120,23 @@ extern "C" int jprof_read(long long* prof, unsigned* smid) {
 """
 
 
+# one count a pivot on the exact path, one a warp's pivot with any
+FALLBACK = ("{ atomicAdd(&g_exact[0], 1ull); "
+            "if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) "
+            "atomicAdd(&g_exact[1], 1ull); }")
+
+EXACT_READER = """
+extern "C" int jprof_exact(unsigned long long* counts) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(counts, g_exact, sizeof(g_exact));
+  unsigned long long zero[2] = {0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_exact, zero, sizeof(zero));
+  return static_cast<int>(e);
+}
+"""
+
+
 def _markers(src: str) -> str:
     def marker(match):
         k = PHASES.index(match.group(3).strip())
@@ -104,6 +144,8 @@ def _markers(src: str) -> str:
         tail = " jprof_end(st);" if PHASES[k] == "store" else ""
         return f"{match.group(1)}{macro}({k});{tail}"
 
+    src = re.sub(r"^(\s*)// @fallback$", lambda m: m.group(1) + FALLBACK, src,
+                 flags=re.M)
     return re.sub(r"^(\s*)// @phase(\(st\))? (.*)$", marker, src, flags=re.M)
 
 
@@ -128,6 +170,42 @@ def instrument_kernel(src: str) -> str:
     if n != 2:
         raise RuntimeError(f"expected the state declared twice, found {n}")
     return _markers(src) + READER
+
+
+def instrument_herm(src: str) -> str:
+    """herm_jacobi_fidelity.cu with the readings compiled in: its state
+    gains the sums, the state's declaration starts them, every marker
+    reads the clock, and C entries read the sums and the exact-path
+    counts back."""
+    member = "  float vi[2][N];              // rows in, out of V (imaginary)\n"
+    if src.count(member) != 1:
+        raise RuntimeError("herm_jacobi_fidelity.cu: anchor not found once")
+    src = src.replace(member, member + "  long long pacc[JPROF_PHASES];\n"
+                      "  long long plast;\n")
+    src, n = re.subn(r"^(\s*Herm<N> st;)$", r"\1 jprof_begin(st);", src,
+                     flags=re.M)
+    if n != 1:
+        raise RuntimeError(f"expected the state declared once, found {n}")
+    return _markers(src) + READER + EXACT_READER
+
+
+def build_herm(build, csrc, tag, instrumented):
+    """Start nvcc on a copy of ``csrc``'s Hermitian kernel and header under
+    build/profile_jacobi/<tag>/; (library path, process)."""
+    out_dir = os.path.join(build.BUILD_DIR, "profile_jacobi", tag)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(csrc, "jacobi_common.cuh")) as f:
+        header = f.read()
+    with open(os.path.join(csrc, "herm_jacobi_fidelity.cu")) as f:
+        src = f.read()
+    with open(os.path.join(out_dir, "jacobi_common.cuh"), "w") as f:
+        f.write(instrument_header(header) if instrumented else header)
+    cu = os.path.join(out_dir, "herm_jacobi_fidelity_prof.cu")
+    with open(cu, "w") as f:
+        f.write(instrument_herm(src) if instrumented else src)
+    return cu[:-3] + ".so", subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", cu[:-3] + ".so",
+         cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def start_builds(build, tag, instrumented):
@@ -198,6 +276,198 @@ def entry(lib, name, n_tensors):
     return fn
 
 
+def registers(log: str, kernel: str, n: int) -> int:
+    """The registers a thread of ``kernel<n>`` takes, from nvcc's report."""
+    m = re.search(r"Used (\d+) registers", resources(log, kernel, n))
+    return int(m.group(1)) if m else 0
+
+
+def blocks_per_sm(regs: int, threads: int, props) -> int:
+    """Blocks of ``threads`` threads that fit on one SM by their registers
+    (256-register allocation units per warp) and the SM's warp and block
+    limits."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    regs_sm = getattr(props, "regs_per_multiprocessor", 65536)
+    threads_sm = getattr(props, "max_threads_per_multi_processor", 2048)
+    by_regs = regs_sm // (warps * per_warp) if regs else 32
+    return max(0, min(32, threads_sm // threads, by_regs))
+
+
+def herm_main(args, build, cuda_jacobi, realform, props, ghz):
+    """The --herm run (module docstring)."""
+    n, b = args.n, args.herm_b
+    sweeps = realform._sweeps_for(torch.float32, n)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    procs = {"readings": build_herm(build, build.CSRC_DIR, "herm_readings",
+                                    True),
+             "tree": build_herm(build, build.CSRC_DIR, "herm_tree", False)}
+    if args.parent:
+        procs["parent"] = build_herm(
+            build, os.path.join(args.parent, "code_robchar_tpu_torch",
+                                "csrc"), "herm_parent", False)
+    libs = {}
+    for tag, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(log)
+        libs[tag] = (ctypes.CDLL(so), log)
+        fn = entry(libs[tag][0], "herm_jacobi_fidelity", 4)
+        regs = registers(log, "herm_jacobi_fidelity_kernel", n)
+        print(f"herm_jacobi_fidelity ({tag}) n={n}: "
+              f"{resources(log, 'herm_jacobi_fidelity_kernel', n)}")
+        if tag == "tree":
+            for m in range(2, 11):
+                print(f"  n={m}: "
+                      f"{resources(log, 'herm_jacobi_fidelity_kernel', m)}")
+        per_sm = blocks_per_sm(regs, 128, props)
+        if per_sm:
+            wave = per_sm * props.multi_processor_count
+            print(f"  {per_sm} blocks of 128 threads per SM by registers "
+                  f"({per_sm} warps per scheduler), {wave * 128} matrices a "
+                  f"wave: B={b} takes {b / (wave * 128):.2f} waves")
+
+    rng = np.random.default_rng(b)
+    a = rng.normal(size=(n, n, b))
+    z = rng.normal(size=(n, n, b))
+    random = (torch.as_tensor((a + a.transpose(1, 0, 2)) / 2, **f32),
+              torch.as_tensor((z - z.transpose(1, 0, 2)) / 2, **f32),
+              torch.as_tensor(rng.uniform(1, 5, b), **f32))
+    cases = [("random Hermitian", random)]
+    if args.mc_chunks:
+        cases += [(f"MC headline chunk {i} of {args.mc_chunks}", c)
+                  for i, c in enumerate(mc_chunks(args.mc_chunks))]
+
+    def run(tag, ar, ai, t):
+        fid = torch.empty(ar.shape[-1], **f32)
+        err = entry(libs[tag][0], "herm_jacobi_fidelity", 4)(
+            ar.data_ptr(), ai.data_ptr(), t.data_ptr(), fid.data_ptr(),
+            ar.shape[0], 0, ar.shape[0] - 1, sweeps, cuda_jacobi.EPS,
+            ar.shape[-1], 0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{tag}: CUDA error {err}")
+        return fid
+
+    lib = libs["readings"][0]
+    lib.jprof_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.jprof_exact.argtypes = [ctypes.c_void_p]
+    pivots = n * (n - 1) // 2
+    for label, (ar, ai, t) in cases:
+        bb = ar.shape[-1]
+        run("readings", ar, ai, t)
+        counts = np.zeros(2, dtype=np.uint64)
+        lib.jprof_exact(counts.ctypes.data)
+        run("readings", ar, ai, t)
+        prof = np.zeros(len(PHASES), dtype=np.int64)
+        smid = np.zeros(MAX_BLOCKS, dtype=np.uint32)
+        if lib.jprof_read(prof.ctypes.data, smid.ctypes.data):
+            raise SystemExit("reading back failed")
+        lib.jprof_exact(counts.ctypes.data)
+        total = bb * sweeps * pivots
+        warp_total = -(-bb // 32) * sweeps * pivots
+        print(f"\n{label}, n={n} B={bb} sweeps={sweeps}: pivots on the "
+              f"exact angle path {int(counts[0])} of {total} "
+              f"({counts[0] / total:.3e}); pivots of a warp with one "
+              f"{int(counts[1])} of {warp_total} "
+              f"({counts[1] / warp_total:.3e})")
+        tot = int(prof.sum())
+        print(f"  thread 0 of block 0: {tot} clocks ({tot / ghz * 1e-3:.2f} "
+              f"us at {ghz:.3f} GHz)")
+        for k, phase in enumerate(PHASES):
+            if prof[k]:
+                print(f"    {phase:20s} {int(prof[k]):9d} clocks "
+                      f"{100 * prof[k] / tot:5.1f}%  "
+                      f"{prof[k] / sweeps:9.1f} per sweep")
+        if "parent" in libs:
+            got, want = run("tree", ar, ai, t), run("parent", ar, ai, t)
+            torch.cuda.synchronize()
+            same = got.view(torch.int32) == want.view(torch.int32)
+            diff = (got - want).abs()
+            print(f"  tree vs parent: bit-equal {int(same.sum())} of {bb} "
+                  f"({float(same.float().mean()):.6f}); max |diff| "
+                  f"{float(diff.max()):.3e}, finite "
+                  f"{bool(torch.isfinite(got).all())}")
+
+    if "parent" in libs:
+        ar, ai, t = random
+        fns = {tag: (lambda tag=tag: run(tag, ar, ai, t))
+               for tag in ("parent", "tree")}
+        ms = {"parent": [], "tree": []}
+        for tag in ("parent", "tree", "tree", "parent"):
+            ms[tag].append(time_ms(fns[tag], reps=50, behind_spin=True))
+        print(f"\ncard-paced ms per launch at n={n} B={b} (parent, tree, "
+              f"tree, parent): parent {ms['parent']}, tree {ms['tree']}; "
+              f"min {min(ms['parent']):.5f} -> {min(ms['tree']):.5f}")
+    else:
+        ar, ai, t = random
+        print(f"\ncard-paced ms per launch at n={n} B={b}: "
+              f"{time_ms(lambda: run('tree', ar, ai, t), 50, True):.5f}")
+
+
+def eigh_ms(mats):
+    """(ms, backend) of one batched torch.linalg.eigh on ``mats`` (B, n, n),
+    the library yardstick of the Jacobi kernels (the eigendecomposition
+    only), the smaller of two timed calls after a warm one.  cuSOLVER's
+    batched eigh refuses large batches of small matrices; the call then
+    runs with MAGMA."""
+    try:
+        return min(time_ms(lambda: torch.linalg.eigh(mats), 3)
+                   for _ in range(2)), "cusolver"
+    except torch.linalg.LinAlgError:
+        torch.backends.cuda.preferred_linalg_library("magma")
+        try:
+            return min(time_ms(lambda: torch.linalg.eigh(mats), 1)
+                       for _ in range(2)), "magma"
+        finally:
+            torch.backends.cuda.preferred_linalg_library("default")
+
+
+def eigh_main(n, batches):
+    """The --eigh run: batched torch.linalg.eigh of B random real symmetric
+    float32 n x n matrices (the zoo kernels' matrices) at each batch."""
+    for b in batches:
+        a = torch.randn((b, n, n), dtype=torch.float32, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(b))
+        ms, backend = eigh_ms(((a + a.transpose(1, 2)) / 2).contiguous())
+        print(f"torch.linalg.eigh n={n} B={b} float32 ({backend}, "
+              f"eigendecomposition only): {ms:.4f} ms")
+
+
+def mc_chunks(count):
+    """The Hermitian kernel's inputs (ar, ai, t) of ``count`` launches of
+    the MC headline sweep spread from its first to its last (the first
+    chunks hold the noiseless level, whose matrices are real), taken from
+    the engine's call."""
+    from code_robchar_tpu_torch.mc import engine
+    from code_robchar_tpu_torch.ops import chain, cuda_jacobi, prng
+
+    n, n_ctrl, n_noise, bootreps = 7, 10_000, 11, 100
+    chunks = -(-n_ctrl * n_noise * bootreps // engine.KERNEL_CHUNK)
+    # spread over the sweep: the first chunks hold the noiseless level
+    wanted = set(np.linspace(0, chunks - 1, count).round().astype(int))
+    rng = np.random.default_rng(0)
+    ctrl = np.column_stack([rng.uniform(-10, 10, (n_ctrl, n)),
+                            rng.uniform(0, 30, n_ctrl)]).astype(np.float32)
+    noises = np.linspace(0, 0.1, n_noise).astype(np.float32)
+    taken, calls = [], [0]
+    kernel = cuda_jacobi.fidelity_herm
+
+    def take(ar, ai, t, *rest):
+        if calls[0] in wanted:
+            taken.append((ar.clone(), ai.clone(), t.clone()))
+        calls[0] += 1
+        return kernel(ar, ai, t, *rest)
+
+    cuda_jacobi.fidelity_herm = take
+    try:
+        engine.mc_metric_sweep(chain.xx_hamiltonian_real(
+            n, dtype=torch.float32), ctrl, noises, prng.key(1), bootreps, 0,
+            6, complex_offdiag=True, alpha=0.05, device="cuda")
+    finally:
+        cuda_jacobi.fidelity_herm = kernel
+    return taken
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=7)
@@ -205,6 +475,11 @@ def main():
     ap.add_argument("--amp-b", type=int, default=9216)
     ap.add_argument("--grad-b", type=int, default=1024)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--herm", action="store_true")
+    ap.add_argument("--herm-b", type=int, default=131072)
+    ap.add_argument("--parent", default=None)
+    ap.add_argument("--mc-chunks", type=int, default=3)
+    ap.add_argument("--eigh", default=None)
     args = ap.parse_args()
     routes = args.routes.split(",")
     if not torch.cuda.is_available():
@@ -221,6 +496,12 @@ def main():
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0]) / 1e3
+    if args.herm:
+        herm_main(args, build, cuda_jacobi, realform, props, ghz)
+        return
+    if args.eigh:
+        eigh_main(args.n, [int(b) for b in args.eigh.split(",")])
+        return
     n = args.n
     sweeps = realform._sweeps_for(torch.float32, n)
     f32 = dict(dtype=torch.float32, device="cuda")
