@@ -107,8 +107,10 @@ Phases:
    through the accumulated action (at T = 64 that parting is printed
    beside the plain version against itself with the carry one ulp up);
    the same step by step at h = 64 (A = 1000, T = 64, ham_noisy), which
-   takes the generic instance of the kernel (W2 in shared memory) instead
-   of the path's (h = 100, W2 in registers).
+   takes the generic kernel of csrc/actor_env_rollout.cu (W2 in shared
+   memory) instead of the path's (h = 100, W2 in registers).  Each of the
+   two kernels has its own count: every hold must have launched the one
+   its width takes, once, and not the other.
    Agents whose raw action or time comes within 1e-5 of a wrap boundary
    may part (a rounding-level difference picks the other branch); they
    are counted, and the phase fails if any other agent parts or more than
@@ -145,9 +147,10 @@ Phases:
    warm-up and three timed epochs.  Prints env-steps/s, the epoch split by
    CUDA events (rollout, true fid, values + logps + GAE, pi loop, critic),
    mean pi_iters and the launches of the amplitude, rollout and bf16
-   critic kernels over the five epochs (the last two once per epoch; the
-   float32 critic kernel must not be launched: on the card the epoch asks
-   for fast_dot=True); rewards finite and in [0, 1].  Then the one-thread
+   critic kernels over the five epochs (the last two once per epoch: the
+   rollout through its kernel of the path's width, never its generic one;
+   the float32 critic kernel must not be launched: on the card the epoch
+   asks for fast_dot=True); rewards finite and in [0, 1].  Then the one-thread
    amplitude kernel on the last epoch's own true-fidelity batch (512,000
    matrices, 4 sweeps, assembled anew from the visited controllers):
    against the plain version (amplitude <= 3e-5) and against the epoch's
@@ -1139,8 +1142,16 @@ def _hold_rollout(label, args, kw, free=True):
     from code_robchar_tpu_torch.ops import rollout
 
     w1, w2, w3, ls, h0, action, tstep, ep_len, eps, zd, zn = args
+    reg = w2.shape[-1] == rollout.REG_HIDDEN
+    before = (rollout.LAUNCHES_REG, rollout.LAUNCHES)
     got = rollout.actor_env_rollout(*args, **kw)
     torch.cuda.synchronize()
+    took = (rollout.LAUNCHES_REG - before[0], rollout.LAUNCHES - before[1])
+    kernel = ("actor_env_rollout_reg_kernel" if reg
+              else "actor_env_rollout_kernel")
+    if took != ((1, 0) if reg else (0, 1)):
+        raise RuntimeError(f"rollout {label}: launches (reg, generic) {took}, "
+                           f"expected one of {kernel} alone")
     n = action.shape[0]
     t_len, a_cnt = got.fid.shape
     err = torch.zeros(a_cnt, device=h0.device)
@@ -1179,7 +1190,8 @@ def _hold_rollout(label, args, kw, free=True):
                   f"plain {int(_rollouts_parted(got, plain).sum())}, plain "
                   f"vs plain with the carry one ulp up "
                   f"{int(_rollouts_parted(plain, witness).sum())}")
-    print(f"rollout kernel {label}: A={a_cnt} T={t_len}, step by step from "
+    print(f"rollout kernel {label} ({kernel}): A={a_cnt} T={t_len}, step "
+          f"by step from "
           f"the kernel's carry: max |kernel-plain| {worst:.3e} (tol "
           f"{TOL_PPO:g}); parted {n_parted}/{a_cnt}, of them away from a "
           f"wrap boundary {n_other} {'ok' if ok else 'FAIL'}{report}; "
@@ -1356,8 +1368,8 @@ def phase_ppo_kernels():
                           _bound(a * t * _rollout_step_flops(n, h, 4),
                                  nbytes))
     print(f"timing rollout A={a} T={t} sweeps 4: kernel {runs['kernel']} "
-          f"ms (card-paced; launch shape "
-          f"{rollout.launch_shape(n, h)}), plain {runs['plain']} ms; bound "
+          f"ms (card-paced, actor_env_rollout_reg_kernel), plain "
+          f"{runs['plain']} ms; bound "
           f"{timings['rollout'][2][0]:.4f} ms ({timings['rollout'][2][1]})")
 
     runs = {"plain": [], "kernel": []}
@@ -1418,7 +1430,8 @@ def phase_ppo_path():
         marks.append((name, ev))
 
     ppo.stage_hook = mark
-    rollout.LAUNCHES = critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
+    rollout.LAUNCHES_REG = rollout.LAUNCHES = 0
+    critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
     cuda_jacobi.SYM_AMP_LAUNCHES = 0
     for _ in range(2):
         st, out = epoch_fn(st)
@@ -1432,10 +1445,10 @@ def phase_ppo_path():
         pi_iters.append(float(out.pi_iters.double().mean()))
         float(out.rewards.sum())
     wall = time.perf_counter() - start
-    launches = {"rollout": rollout.LAUNCHES,
+    launches = {"rollout": rollout.LAUNCHES_REG,
                 "critic_bf16": critic.LAUNCHES_BF16,
                 "amp": cuda_jacobi.SYM_AMP_LAUNCHES}
-    f32_launches = critic.LAUNCHES
+    f32_launches, generic_launches = critic.LAUNCHES, rollout.LAUNCHES
     torch.cuda.synchronize()
     split = {}
     for (_, a), (name, b) in zip(marks, marks[1:]):
@@ -1447,13 +1460,17 @@ def phase_ppo_path():
           f"3 epochs {wall:.4f} s, {rate:.1f} env-steps/s; per epoch (ms, "
           f"CUDA events): " + ", ".join(f"{k} {v:.2f}" for k, v in
                                         split.items())
-          + f"; mean pi_iters {pi_iters}; launches over 5 epochs {launches};"
-          f" best reward {float(rew.max()):.6f}")
+          + f"; mean pi_iters {pi_iters}; launches over 5 epochs {launches}"
+          f" (rollout: actor_env_rollout_reg_kernel; the generic rollout "
+          f"kernel {generic_launches}); best reward {float(rew.max()):.6f}")
     if min(launches.values()) <= 0 or launches["critic_bf16"] != 5 or \
-            f32_launches != 0:
+            launches["rollout"] != 5 or f32_launches != 0 or \
+            generic_launches != 0:
         raise RuntimeError(f"the PPO path missed a kernel, or did not take "
-                           f"the bf16 critic kernel once per epoch and that "
-                           f"alone: {launches}, float32 critic kernel "
+                           f"the rollout kernel of its width and the bf16 "
+                           f"critic kernel once per epoch and those alone: "
+                           f"{launches}, generic rollout kernel "
+                           f"{generic_launches}, float32 critic kernel "
                            f"{f32_launches}")
     if not bool(torch.isfinite(rew).all()) or float(rew.min()) < -1e-5 or \
             float(rew.max()) > 1 + 1e-5:

@@ -49,10 +49,11 @@
 // four block barriers a step; layer 3 runs on D threads as 100-term serial
 // chains and thread 0 alone wraps.  Measured at the PPO path's width (h =
 // 100, A = 1024, T = 500, H100): ~5,600 clocks a step, layers 2 and 3 74%
-// of them.  The path's width h = kRegHidden takes
+// of them.  The path's width h = kRegHidden has
 // actor_env_rollout_reg_kernel: h a compile-time constant, each thread's
 // column of W2 in registers, every warp computing layer 3 and the wrap
-// itself, two barriers a step (its note below).
+// itself, two barriers a step (its note below).  Each kernel has its own C
+// entry at the end of the file: the caller picks the kernel.
 //
 // Layout: weights agent-major (A, rows, cols); carry action (n, A), t (A,),
 // ep (A,) int32; streams and trajectory (T, feat, A), done and timeout
@@ -250,8 +251,8 @@ __global__ void __launch_bounds__(kMaxThreads) actor_env_rollout_kernel(
 
 // ---- the path's width: h = kRegHidden, each thread's W2 column in registers
 
-// the hidden width of the kernel below (the PPO path's actor, (100, 100)); the
-// other widths take the kernel above
+// the hidden width of the kernel below (the PPO path's actor, (100, 100);
+// ops/rollout.py REG_HIDDEN); the other widths take the kernel above
 constexpr int kRegHidden = 100;
 constexpr int kRegThreads = 128;
 // blocks an SM holds by the kernel's registers (at most 168 a thread)
@@ -519,12 +520,13 @@ cudaError_t launch_reg(const float* w1, const float* w2, const float* w3,
 }
 
 template <int N, bool NOISY>
-cudaError_t launch(const float* w1, const float* w2, const float* w3,
-                   const float* ls, const float* h0, const float* act_in,
-                   const float* t_in, const int* ep_in, const Streams& io,
-                   float* act_out, float* t_out, int* ep_out,
-                   const Scalars& sc, cudaStream_t stream) {
-  if (sc.h == kRegHidden) {
+cudaError_t launch(bool reg, const float* w1, const float* w2,
+                   const float* w3, const float* ls, const float* h0,
+                   const float* act_in, const float* t_in, const int* ep_in,
+                   const Streams& io, float* act_out, float* t_out,
+                   int* ep_out, const Scalars& sc, cudaStream_t stream) {
+  if (reg) {
+    if (sc.h != kRegHidden) return cudaErrorInvalidValue;
     return launch_reg<N, NOISY, kRegHidden>(w1, w2, w3, ls, h0, act_in,
                                             t_in, ep_in, io, act_out, t_out,
                                             ep_out, sc, stream);
@@ -549,37 +551,30 @@ cudaError_t launch(const float* w1, const float* w2, const float* w3,
 }
 
 template <int N>
-cudaError_t dispatch_noise(bool noisy, const float* w1, const float* w2,
-                           const float* w3, const float* ls, const float* h0,
-                           const float* act_in, const float* t_in,
-                           const int* ep_in, const Streams& io,
-                           float* act_out, float* t_out, int* ep_out,
-                           const Scalars& sc, cudaStream_t stream) {
+cudaError_t dispatch_noise(bool noisy, bool reg, const float* w1,
+                           const float* w2, const float* w3, const float* ls,
+                           const float* h0, const float* act_in,
+                           const float* t_in, const int* ep_in,
+                           const Streams& io, float* act_out, float* t_out,
+                           int* ep_out, const Scalars& sc,
+                           cudaStream_t stream) {
   if (noisy) {
-    return launch<N, true>(w1, w2, w3, ls, h0, act_in, t_in, ep_in, io,
+    return launch<N, true>(reg, w1, w2, w3, ls, h0, act_in, t_in, ep_in, io,
                            act_out, t_out, ep_out, sc, stream);
   }
-  return launch<N, false>(w1, w2, w3, ls, h0, act_in, t_in, ep_in, io,
+  return launch<N, false>(reg, w1, w2, w3, ls, h0, act_in, t_in, ep_in, io,
                           act_out, t_out, ep_out, sc, stream);
 }
 
-}  // namespace
-
-// C entry, bound with ctypes.  Shapes in the note above (d = n + 1); zdiag
-// and znn may be null when ham_noisy is 0.  All pointers on `device`;
-// launches on `stream` and does not synchronise.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for n outside
-// 2..10 or h < 1; an error from cudaFuncSetAttribute when the weights do not
-// fit in a block's shared memory).
-extern "C" int actor_env_rollout(
-    const float* w1, const float* w2, const float* w3, const float* log_std,
-    const float* h0, const float* act_in, const float* t_in,
-    const int* ep_in, const float* eps, const float* zdiag, const float* znn,
-    float* a_out, float* fid_out, float* obs2_out, unsigned char* done_out,
-    unsigned char* tto_out, float* act_out, float* t_out, int* ep_out, int n,
-    int h, int in_spin, int out_spin, int sweeps, float eps_rot, float bmax,
-    float maxtime, int max_ep_len, int ham_noisy, int T, int A, int device,
-    void* stream) {
+int rollout_entry(
+    bool reg, const float* w1, const float* w2, const float* w3,
+    const float* log_std, const float* h0, const float* act_in,
+    const float* t_in, const int* ep_in, const float* eps, const float* zdiag,
+    const float* znn, float* a_out, float* fid_out, float* obs2_out,
+    unsigned char* done_out, unsigned char* tto_out, float* act_out,
+    float* t_out, int* ep_out, int n, int h, int in_spin, int out_spin,
+    int sweeps, float eps_rot, float bmax, float maxtime, int max_ep_len,
+    int ham_noisy, int T, int A, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (A <= 0) return static_cast<int>(cudaSuccess);
@@ -592,8 +587,9 @@ extern "C" int actor_env_rollout(
   const bool noisy = ham_noisy != 0;
 #define ROLLOUT_CASE(NN)                                                    \
   case NN:                                                                  \
-    return dispatch_noise<NN>(noisy, w1, w2, w3, log_std, h0, act_in, t_in, \
-                              ep_in, io, act_out, t_out, ep_out, sc, s);
+    return dispatch_noise<NN>(noisy, reg, w1, w2, w3, log_std, h0, act_in,  \
+                              t_in, ep_in, io, act_out, t_out, ep_out, sc,  \
+                              s);
   switch (n) {
     ROLLOUT_CASE(2)
     ROLLOUT_CASE(3)
@@ -608,3 +604,36 @@ extern "C" int actor_env_rollout(
   }
 #undef ROLLOUT_CASE
 }
+
+}  // namespace
+
+// C entries, bound with ctypes, one a kernel: actor_env_rollout launches
+// actor_env_rollout_kernel (any h whose weights fit in a block's shared
+// memory), actor_env_rollout_reg the kernel of the path's width (h must be
+// kRegHidden).  Shapes in the note above (d = n + 1); zdiag and znn may be
+// null when ham_noisy is 0.  All pointers on `device`; launches on `stream`
+// and does not synchronise.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for n outside 2..10, h < 1, or another h than
+// kRegHidden on actor_env_rollout_reg; an error from cudaFuncSetAttribute
+// when the weights do not fit in a block's shared memory).
+#define ROLLOUT_ENTRY(NAME, REG)                                              \
+  extern "C" int NAME(                                                        \
+      const float* w1, const float* w2, const float* w3,                      \
+      const float* log_std, const float* h0, const float* act_in,             \
+      const float* t_in, const int* ep_in, const float* eps,                  \
+      const float* zdiag, const float* znn, float* a_out, float* fid_out,     \
+      float* obs2_out, unsigned char* done_out, unsigned char* tto_out,       \
+      float* act_out, float* t_out, int* ep_out, int n, int h, int in_spin,   \
+      int out_spin, int sweeps, float eps_rot, float bmax, float maxtime,     \
+      int max_ep_len, int ham_noisy, int T, int A, int device,                \
+      void* stream) {                                                         \
+    return rollout_entry(REG, w1, w2, w3, log_std, h0, act_in, t_in, ep_in,   \
+                         eps, zdiag, znn, a_out, fid_out, obs2_out, done_out, \
+                         tto_out, act_out, t_out, ep_out, n, h, in_spin,      \
+                         out_spin, sweeps, eps_rot, bmax, maxtime,            \
+                         max_ep_len, ham_noisy, T, A, device, stream);        \
+  }
+
+ROLLOUT_ENTRY(actor_env_rollout, false)
+ROLLOUT_ENTRY(actor_env_rollout_reg, true)
+#undef ROLLOUT_ENTRY

@@ -12,8 +12,10 @@ Each step, per agent:
 ``actor_env_rollout`` sends CPU tensors to the plain version
 (``actor_env_rollout_plain``, a Python loop over T whose steps are
 vectorised over agents) and CUDA float32 tensors to the hand-written kernel
-``csrc/actor_env_rollout.cu``; CUDA float64 raises ``ValueError``.  There
-is no fallback.  ``LAUNCHES`` counts the kernel's launches.
+``csrc/actor_env_rollout.cu`` (at the PPO path's width ``REG_HIDDEN`` its
+register-resident kernel, at other widths its generic one); CUDA float64
+raises ``ValueError``.  There is no fallback.  ``LAUNCHES_REG`` and
+``LAUNCHES`` count the two kernels' launches.
 
 Layout (the port's own; no sublane padding): the actor's three Dense layers
 folded with their bias as the last input row, agent-major,
@@ -41,40 +43,30 @@ import torch
 from code_robchar_tpu_torch.ops import cuda_jacobi, realform
 from code_robchar_tpu_torch.utils import build
 
-#: launches of csrc/actor_env_rollout.cu in this process (never
-#: incremented by the CPU path)
+#: launches of the generic kernel of csrc/actor_env_rollout.cu
+#: (``actor_env_rollout_kernel``, W2 in shared memory: every width but
+#: ``REG_HIDDEN``) in this process; never incremented by the CPU path
 LAUNCHES = 0
-#: the hidden width of the kernel instance that keeps each thread's column
-#: of W2 in registers (``kRegHidden`` in csrc/actor_env_rollout.cu: the PPO
-#: path's (100, 100) actor); other widths take the generic instance, with
-#: W2 in shared memory
+#: launches of the kernel of the PPO path's width
+#: (``actor_env_rollout_reg_kernel``, each thread's column of W2 in
+#: registers), likewise
+LAUNCHES_REG = 0
+#: the hidden width that takes ``actor_env_rollout_reg_kernel``
+#: (``kRegHidden`` in csrc/actor_env_rollout.cu: the PPO path's (100, 100)
+#: actor)
 REG_HIDDEN = 100
-#: threads of a block of that instance, and the blocks an SM holds by its
-#: registers (``kRegThreads``, ``kRegBlocksPerSm``)
-REG_THREADS, REG_BLOCKS_PER_SM = 128, 3
 
 
 def smem_bytes(n: int, hid: int) -> int:
-    """Shared memory of one block of the kernel instance that width
-    ``hid`` takes, float32: at ``REG_HIDDEN`` h1, W1, the four warps' partial
-    sums of layer 3 (16 slots each) and h0; at other widths the three
-    folded weights, two hidden activations, the carry and h0."""
+    """Shared memory of one block of the kernel that width ``hid`` takes,
+    float32: at ``REG_HIDDEN`` h1, W1, the four warps' partial sums of
+    layer 3 (16 slots each) and h0; at other widths the three folded
+    weights, two hidden activations, the carry and h0."""
     d = n + 1
     if hid == REG_HIDDEN:
         return 4 * (hid + (d + 1) * hid + 4 * 16 + n * n)
     dynamic = (d + 1) * hid + (hid + 1) * hid + (hid + 1) * d + 2 * hid
     return 4 * (dynamic + 3 * d + n * n)
-
-
-def launch_shape(n: int, hid: int) -> dict:
-    """How the kernel is launched for n spins and hidden width ``hid``:
-    the instance ("reg": W2 columns in registers, or "generic"), threads a
-    block (one block per agent), and shared memory a block."""
-    if hid == REG_HIDDEN:
-        return dict(instance="reg", threads=REG_THREADS,
-                    smem=smem_bytes(n, hid))
-    threads = min(256, -(-max(hid, n + 1) // 32) * 32)
-    return dict(instance="generic", threads=threads, smem=smem_bytes(n, hid))
 
 
 class RolloutOut(NamedTuple):
@@ -205,8 +197,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @functools.cache
-def _entry():
-    fn = build.load().actor_env_rollout
+def _entry(name: str):
+    fn = getattr(build.load(), name)
     # 19 pointers; n, h, in_spin, out_spin, sweeps; eps, bmax, maxtime;
     # max_ep_len, ham_noisy, T, A, device; stream
     fn.argtypes = ([_P] * 19 + [_I] * 5 + [_F] * 3 + [_I] * 5 + [_P])
@@ -218,10 +210,10 @@ def actor_env_rollout_cuda(w1, w2, w3, log_std, h0, action, tstep, ep_len,
                            eps, zdiag, znn, *, in_spin: int, out_spin: int,
                            sweeps: int, bmax: float, maxtime: float,
                            max_ep_len: int, ham_noisy: bool) -> RolloutOut:
-    """Launch the kernel on the current stream (not synchronised): float32
-    tensors on one CUDA device, ep_len int32, shapes in the module
-    docstring."""
-    global LAUNCHES
+    """Launch the kernel of width ``w2.shape[-1]`` on the current stream
+    (not synchronised): float32 tensors on one CUDA device, ep_len int32,
+    shapes in the module docstring."""
+    global LAUNCHES, LAUNCHES_REG
     floats = dict(w1=w1, w2=w2, w3=w3, log_std=log_std, h0=h0,
                   action=action, tstep=tstep, eps=eps)
     if ham_noisy:
@@ -270,7 +262,8 @@ def actor_env_rollout_cuda(w1, w2, w3, log_std, h0, action, tstep, ep_len,
         return out
     ptrs = [w1, w2, w3, log_std, h0, action, tstep, ep_len, eps,
             zdiag if ham_noisy else None, znn if ham_noisy else None, *out]
-    err = _entry()(
+    reg = hid == REG_HIDDEN
+    err = _entry("actor_env_rollout_reg" if reg else "actor_env_rollout")(
         *(None if p is None else p.data_ptr() for p in ptrs),
         n, hid, in_spin, out_spin, sweeps, cuda_jacobi.EPS, float(bmax),
         float(maxtime), int(max_ep_len), int(bool(ham_noisy)), t_len, a_cnt,
@@ -278,7 +271,10 @@ def actor_env_rollout_cuda(w1, w2, w3, log_std, h0, action, tstep, ep_len,
     if err != 0:
         raise RuntimeError(f"actor_env_rollout launch failed: CUDA error "
                            f"{err} (n={n}, h={hid}, T={t_len}, A={a_cnt})")
-    LAUNCHES += 1
+    if reg:
+        LAUNCHES_REG += 1
+    else:
+        LAUNCHES += 1
     return out
 
 

@@ -378,18 +378,21 @@ def _rollout_case(n, hid, a_cnt, t_len, dev, seed=0):
                                              (3, 100, False), (10, 100, True),
                                              (7, 64, True)])
 def test_rollout_kernel_matches_plain_version(dev, n, hid, ham_noisy):
-    """Both instances: h = 100 keeps W2 in registers (outputs reduced over
-    4, 8 or 16 slots at n = 3, 7, 10), the other widths the generic one."""
+    """Both kernels: h = 100 takes the one that keeps W2 in registers
+    (outputs reduced over 4, 8 or 16 slots at n = 3, 7, 10), the other
+    widths the generic one; each counts its own launches."""
     from code_robchar_tpu_torch.ops import rollout
 
     args = _rollout_case(n, hid, 70, 20, dev, seed=n)
     kw = dict(in_spin=0, out_spin=n - 1, sweeps=4, bmax=10.0, maxtime=30.0,
               max_ep_len=7, ham_noisy=ham_noisy)
-    before = rollout.LAUNCHES
+    before = (rollout.LAUNCHES_REG, rollout.LAUNCHES)
     got = rollout.actor_env_rollout(*args, **kw)
     want = rollout.actor_env_rollout_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert rollout.LAUNCHES == before + 1
+    reg = int(hid == rollout.REG_HIDDEN)
+    assert (rollout.LAUNCHES_REG, rollout.LAUNCHES) == (
+        before[0] + reg, before[1] + 1 - reg)
     for name in ("a", "fid", "obs2", "next_action", "next_t"):
         err = float((getattr(got, name) - getattr(want, name)).abs().max())
         assert err <= 1e-4, (name, err)
@@ -525,7 +528,7 @@ def test_ppo_kernels_refuse_float64(dev):
 
     args = [x.double() if x.is_floating_point() else x
             for x in _rollout_case(4, 16, 8, 3, dev)]
-    before = (rollout.LAUNCHES, critic.LAUNCHES)
+    before = (rollout.LAUNCHES, rollout.LAUNCHES_REG, critic.LAUNCHES)
     with pytest.raises(ValueError, match="float32"):
         rollout.actor_env_rollout(*args, in_spin=0, out_spin=3, sweeps=4,
                                   bmax=10.0, maxtime=30.0, max_ep_len=5,
@@ -538,14 +541,15 @@ def test_ppo_kernels_refuse_float64(dev):
             torch.zeros((2, 3, 4), dtype=torch.float64, device=dev),
             torch.zeros((2, 3), dtype=torch.float64, device=dev), h=16,
             iters=1, lr=1e-3)
-    assert (rollout.LAUNCHES, critic.LAUNCHES) == before
+    assert (rollout.LAUNCHES, rollout.LAUNCHES_REG, critic.LAUNCHES) == before
 
 
 def test_ppo_epoch_on_card_matches_cpu(dev):
     """One epoch at N=4, 16 agents, T=16 through the kernels on the card
     against the plain versions on the CPU, both float32, from one state.
     On the card the epoch takes the bf16 critic kernel (fast_dot=True) once
-    and the float32 one not at all; on the CPU neither."""
+    and the float32 one not at all, and the rollout kernel of the actor's
+    width (100) once and the generic one not at all; on the CPU none."""
     from code_robchar_tpu_torch.models import PPO_en
     from code_robchar_tpu_torch.ops import critic, rollout
 
@@ -555,9 +559,12 @@ def test_ppo_epoch_on_card_matches_cpu(dev):
         fn = p._build_epoch(16, 0.2, 3e-3, 1e-3, 1000, 3, 3, 0.01)
         return fn(p._init_agent(prng.split(prng.key(1), 16)))
 
-    before = (rollout.LAUNCHES, critic.LAUNCHES_BF16, critic.LAUNCHES)
+    def counts():
+        return (rollout.LAUNCHES_REG, rollout.LAUNCHES, critic.LAUNCHES_BF16,
+                critic.LAUNCHES)
+
+    before = counts()
     (_, got), (_, want) = one(dev), one("cpu")
-    assert (rollout.LAUNCHES, critic.LAUNCHES_BF16, critic.LAUNCHES) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert counts() == (before[0] + 1, before[1], before[2] + 1, before[3])
     err = (got.rewards.cpu() - want.rewards).abs().amax(1)
     assert int((err <= 1e-4).sum()) >= 15, err

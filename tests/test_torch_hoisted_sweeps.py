@@ -8,10 +8,11 @@ kernel rest on, on the CPU.
   same; written out here with each pivot's angles taken right before its
   rotation, they must give the same float32 results bit for bit, since a
   stage's pivots are disjoint.
-- The rollout kernel's launch layout (``rollout.smem_bytes``,
-  ``rollout.launch_shape``) for the register-resident instance at the path's
-  width and the generic instance at the others, against the constants of
-  csrc/actor_env_rollout.cu.
+- The rollout's launch layout: which of the two kernels of
+  csrc/actor_env_rollout.cu a width takes (the register-resident one at the
+  path's width, through its own C entry; the generic one at the others),
+  and ``rollout.smem_bytes`` of each, against the constants of the
+  source.
 - The instrumenters of tools/profile_jacobi.py (``--herm``) and
   tools/profile_rollout.py on the ``// @phase`` and ``// @fallback`` lines of
   the sources as they stand.
@@ -129,40 +130,50 @@ def _source(name):
         return f.read()
 
 
+def _constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
 def test_rollout_constants_are_the_kernels():
+    """The width that takes the register-resident kernel is the source's,
+    each kernel has its C entry, the one ops/rollout.py calls, and the
+    register-resident one refuses any other width."""
     src = _source("actor_env_rollout.cu")
-    assert f"constexpr int kRegHidden = {rollout.REG_HIDDEN};" in src
-    assert f"constexpr int kRegThreads = {rollout.REG_THREADS};" in src
-    assert (f"constexpr int kRegBlocksPerSm = {rollout.REG_BLOCKS_PER_SM};"
-            in src)
+    assert _constant(src, "kRegHidden") == rollout.REG_HIDDEN
+    assert "ROLLOUT_ENTRY(actor_env_rollout, false)" in src
+    assert "ROLLOUT_ENTRY(actor_env_rollout_reg, true)" in src
+    assert "if (sc.h != kRegHidden) return cudaErrorInvalidValue;" in src
     assert "__launch_bounds__(kRegThreads, kRegBlocksPerSm)" in src
     assert "constexpr int kMaxSlots = 16;" in src
     assert "__shared__ float s_part[W][kMaxSlots];" in src
+    with open(rollout.__file__) as f:
+        wrapper = f.read()
+    assert ('_entry("actor_env_rollout_reg" if reg else "actor_env_rollout")'
+            in wrapper)
 
 
 @pytest.mark.parametrize("n", [2, 7, 10])
 def test_rollout_launch_shape_of_the_path_width(n):
     d = n + 1
-    shape = rollout.launch_shape(n, rollout.REG_HIDDEN)
     hid = rollout.REG_HIDDEN
-    assert shape == dict(instance="reg", threads=128, smem=4 * (
-        hid + (d + 1) * hid + 4 * 16 + n * n))
-    # W2 and W3 live in registers: three blocks an SM fit by shared memory
-    # too, in the static 48 KB of a block
-    assert rollout.REG_BLOCKS_PER_SM * shape["smem"] < build.SMEM_PER_BLOCK
-    assert shape["smem"] <= 48 * 1024
-    assert shape["smem"] == rollout.smem_bytes(n, hid)
+    src = _source("actor_env_rollout.cu")
+    smem = rollout.smem_bytes(n, hid)
+    # h1, W1, four warps' 16 slots of layer 3 and h0; W2 and W3 live in
+    # registers, so the blocks the registers allow fit by shared memory too,
+    # in the static 48 KB of a block
+    assert smem == 4 * (hid + (d + 1) * hid + 4 * 16 + n * n)
+    assert _constant(src, "kRegThreads") == 4 * 32
+    assert _constant(src, "kRegBlocksPerSm") * smem < build.SMEM_PER_BLOCK
+    assert smem <= 48 * 1024
     assert rollout.smem_bytes(7, 100) == 4452
 
 
-@pytest.mark.parametrize("n,hid,threads", [(7, 64, 64), (4, 16, 32),
-                                           (10, 40, 64), (7, 160, 160),
-                                           (3, 300, 256)])
-def test_rollout_launch_shape_of_the_generic_instance(n, hid, threads):
+@pytest.mark.parametrize("n,hid", [(7, 64), (4, 16), (10, 40), (7, 160),
+                                   (3, 300)])
+def test_rollout_launch_shape_of_the_generic_instance(n, hid):
     d = n + 1
-    shape = rollout.launch_shape(n, hid)
-    assert shape["instance"] == "generic" and shape["threads"] == threads
-    assert shape["smem"] == rollout.smem_bytes(n, hid) == 4 * (
+    assert hid != rollout.REG_HIDDEN
+    assert rollout.smem_bytes(n, hid) == 4 * (
         (d + 1) * hid + (hid + 1) * hid + (hid + 1) * d + 2 * hid
         + 3 * d + n * n)
 

@@ -118,9 +118,10 @@ def test_rollout_plain_matches_pallas_interpret(t_len, ham_noisy,
     tree, h0, carry, streams = _rollout_inputs(64, t_len, seed=t_len)
     want = _jax_rollout(tree, h0, carry, streams, t_len, ham_noisy,
                         max_ep_len)
-    before = rollout.LAUNCHES
+    before = (rollout.LAUNCHES, rollout.LAUNCHES_REG)
     got = _port_rollout(tree, h0, carry, streams, ham_noisy, max_ep_len)
-    assert rollout.LAUNCHES == before          # the CPU runs the plain one
+    # the CPU runs the plain one
+    assert (rollout.LAUNCHES, rollout.LAUNCHES_REG) == before
     _check(got, want, 64)
     if max_ep_len < t_len:
         assert got.timeout.any() and int(got.next_ep.max()) < max_ep_len

@@ -3,8 +3,8 @@ of the card a launch occupies, on one CUDA card.
 
     python3 tools/profile_jacobi.py [--n 7] [--routes one,group]
         [--amp-b 9216] [--grad-b 1024] [--sweep]
-    python3 tools/profile_jacobi.py --herm [--n 7] [--herm-b 131072]
-        [--parent DIR] [--mc-chunks 3]
+    python3 tools/profile_jacobi.py --herm [--n 7] [--parent DIR]
+        [--mc-chunks 3]
     python3 tools/profile_jacobi.py --eigh 1024,9216,131072 [--n 7]
 
 Run from the repository root.  csrc/jacobi_common.cuh, sym_jacobi_amp.cu
@@ -34,7 +34,7 @@ GRAD_GROUP_MAX_B of ops/cuda_jacobi.py.
 
 With ``--herm`` it does the same for the MC path's Hermitian kernel
 (csrc/herm_jacobi_fidelity.cu, one thread per matrix) at n = 7 and the
-path's chunk, B = 131072: registers, clocks by phase, the card's
+path's chunk, B = mc/engine.KERNEL_CHUNK = 131072: registers, clocks by phase, the card's
 occupancy (blocks per SM from the registers, waves of 128-thread
 blocks), and the share of pivots whose angle chain left the fast paths'
 ranges and took the exact one (a ``// @fallback`` line in
@@ -296,7 +296,9 @@ def blocks_per_sm(regs: int, threads: int, props) -> int:
 
 def herm_main(args, build, cuda_jacobi, realform, props, ghz):
     """The --herm run (module docstring)."""
-    n, b = args.n, args.herm_b
+    from code_robchar_tpu_torch.mc import engine
+
+    n, b = args.n, engine.KERNEL_CHUNK
     sweeps = realform._sweeps_for(torch.float32, n)
     f32 = dict(dtype=torch.float32, device="cuda")
     procs = {"readings": build_herm(build, build.CSRC_DIR, "herm_readings",
@@ -476,7 +478,6 @@ def main():
     ap.add_argument("--grad-b", type=int, default=1024)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--herm", action="store_true")
-    ap.add_argument("--herm-b", type=int, default=131072)
     ap.add_argument("--parent", default=None)
     ap.add_argument("--mc-chunks", type=int, default=3)
     ap.add_argument("--eigh", default=None)

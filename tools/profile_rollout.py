@@ -2,7 +2,7 @@
 many of its blocks the card holds at once, on one CUDA card.
 
     python3 tools/profile_rollout.py [--agents 1024] [--steps 500]
-        [--hidden 100] [--parent DIR]
+        [--parent DIR]
 
 Run from the repository root.  csrc/actor_env_rollout.cu marks the end of
 each phase of its work with a comment line ``// @phase <name>``: per step
@@ -13,7 +13,9 @@ previous reading to that phase (thread 0 of block 0 writes its sums out
 after the last phase; every block writes its SM and the card's ns timer
 at its start and end), builds it with nvcc into the package's build
 directory and runs it once warm at the PPO path's shapes (N=7, h=100,
-A=1024, T=500, 4 sweeps, ham_noisy; weights and noise from numpy seed 0).
+A=1024, T=500, 4 sweeps, ham_noisy; weights and noise from numpy seed 0)
+through the C entry of the path's kernel (``actor_env_rollout_reg``; a
+checkout from before that entry has the generic one alone).
 
 It prints the card's name and power limit, the registers and shared
 memory of the launched kernel, the clocks of thread 0 by phase (the sum,
@@ -22,9 +24,7 @@ once on the card and on one SM (from the timers), and the launch's
 milliseconds card-paced (launches enqueued behind a ~30 ms spin).
 ``--parent DIR`` builds the kernel also from DIR's code_robchar_tpu_torch
 (a checkout of another commit, e.g. from ``git archive``) and times both,
-without the readings, in turns parent, tree, tree, parent.  ``--variant
-DIR`` does the same for a third checkout (a variant of the tree's kernel
-under trial) and reads its clocks too.
+without the readings, in turns parent, tree, tree, parent.
 
 The readings cost clocks and registers: read the shares, not the absolute
 clocks.
@@ -173,13 +173,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--agents", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=500)
-    ap.add_argument("--hidden", type=int, default=100)
     ap.add_argument("--parent", default=None)
-    ap.add_argument("--variant", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    from code_robchar_tpu_torch.ops import cuda_jacobi
+    from code_robchar_tpu_torch.ops import cuda_jacobi, rollout
     from code_robchar_tpu_torch.utils import build
 
     print(subprocess.run(
@@ -190,17 +188,15 @@ def main():
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0]) / 1e3
-    n, hid, a_cnt, t_len, sweeps = 7, args.hidden, args.agents, args.steps, 4
+    n, hid, a_cnt, t_len, sweeps = (7, rollout.REG_HIDDEN, args.agents,
+                                    args.steps, 4)
     d = n + 1
     trees = {"tree": os.path.join(ROOT, "code_robchar_tpu_torch", "csrc")}
-    for tag in ("parent", "variant"):
-        if getattr(args, tag):
-            trees[tag] = os.path.join(getattr(args, tag),
-                                      "code_robchar_tpu_torch", "csrc")
-    # the readings of the tree's kernel (and the variant's); every kernel is
-    # timed
-    procs = {tag: start_build(build, trees[tag], tag)
-             for tag in ("tree", "variant") if tag in trees}
+    if args.parent:
+        trees["parent"] = os.path.join(args.parent, "code_robchar_tpu_torch",
+                                       "csrc")
+    # the readings of the tree's kernel; both kernels are timed
+    procs = {"tree": start_build(build, trees["tree"], "tree")}
     plain = {tag: start_build(build, csrc, tag + "_plain", False)
              for tag, csrc in trees.items()}
     ins = inputs(n, hid, a_cnt, t_len)
@@ -212,16 +208,14 @@ def main():
             torch.empty((t_len, a_cnt), dtype=torch.bool, device="cuda"),
             torch.empty((n, a_cnt), **f32), torch.empty(a_cnt, **f32),
             torch.empty(a_cnt, dtype=torch.int32, device="cuda")]
-    _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     runs = {}
     for tag, (so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(log)
         lib = ctypes.CDLL(so)
-        fn = lib.actor_env_rollout
-        fn.argtypes = [_p] * 19 + [_i] * 5 + [_f] * 3 + [_i] * 5 + [_p]
-        lib.jprof_read.argtypes = [_p, _p, _p]
+        fn = path_entry(lib)
+        lib.jprof_read.argtypes = [ctypes.c_void_p] * 3
 
         def run(fn=fn):
             err = fn(*(x.data_ptr() for x in ins + outs), n, hid, 0, n - 1,
@@ -231,14 +225,9 @@ def main():
                 raise SystemExit(f"{tag}: CUDA error {err}")
 
         runs[tag] = run
-        print(f"\n{tag}: kernels of N={n} in the build "
-              f"(registers, stack, spills, shared memory):")
-        for line in log.splitlines():
-            if "Compiling entry function" in line and "ILi7ELb1E" in line:
-                i = log.splitlines().index(line)
-                print("  " + line.split("'")[1][:60] + ": " + " ".join(
-                    x.strip().replace("ptxas info    : ", "")
-                    for x in log.splitlines()[i + 2:i + 4]))
+        print(f"\n{tag} with the readings: kernels of N={n} (registers, "
+              f"stack, spills, shared memory):")
+        print_resources(log, [n])
         for _ in range(2):
             run()
         prof = np.zeros(len(PHASES), dtype=np.int64)
@@ -270,11 +259,13 @@ def main():
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(log)
-        fn = ctypes.CDLL(so).actor_env_rollout
-        fn.argtypes = [_p] * 19 + [_i] * 5 + [_f] * 3 + [_i] * 5 + [_p]
-        timed[tag] = lambda fn=fn: runs["tree"](fn)
+        if tag == "tree":
+            print("\ntree: kernels of N=2..10 with ham_noisy (registers, "
+                  "stack, spills, shared memory):")
+            print_resources(log, range(2, 11))
+        timed[tag] = lambda fn=path_entry(ctypes.CDLL(so)): runs["tree"](fn)
     ms = {tag: [] for tag in timed}
-    order = [t for t in ("parent", "tree", "variant") if t in timed]
+    order = [t for t in ("parent", "tree") if t in timed]
     order = order + order[::-1]
     for tag in order:
         ms[tag].append(profile_jacobi.time_ms(timed[tag], reps=5,
@@ -282,6 +273,32 @@ def main():
     print(f"\ncard-paced ms per launch (builds without the readings; A={a_cnt} "
           f"T={t_len} h={hid}): " + ", ".join(f"{k} {v}"
                                              for k, v in ms.items()))
+
+
+def print_resources(log, sizes):
+    """Print nvcc's report of both kernels' ham_noisy instances at the
+    matrix sizes ``sizes`` from the build log ``log``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"(actor_env_rollout(?:_reg)?_kernel)ILi(\d+)ELb1E",
+                      line)
+        if "Compiling entry function" in line and m and \
+                int(m.group(2)) in sizes:
+            print(f"  {m.group(1)} n={m.group(2)}: " + " ".join(
+                x.strip().replace("ptxas info    : ", "")
+                for x in lines[i + 2:i + 4]))
+
+
+def path_entry(lib):
+    """The C entry of the kernel that the PPO path's width takes in the
+    library ``lib``: ``actor_env_rollout_reg`` where the build has it, else
+    (a checkout from before it) ``actor_env_rollout``."""
+    name = ("actor_env_rollout_reg" if hasattr(lib, "actor_env_rollout_reg")
+            else "actor_env_rollout")
+    fn = getattr(lib, name)
+    _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [_p] * 19 + [_i] * 5 + [_f] * 3 + [_i] * 5 + [_p]
+    return fn
 
 
 def max_live(t0, t1):
