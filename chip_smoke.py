@@ -173,7 +173,29 @@ Phases:
    differ by 4e-6 (the witness): the agents apart by more than 1e-4 over
    all 64 steps may be at most the witness's count or 1%, whichever is
    more, plus 1%.
-10. the kernels JSON line (all eight kernels: launches on their paths, the
+10. the probe path (code_robchar_tpu_torch/perf/probes.py, the counterpart
+    of artifacts/perf/roofline.py's ALU probe and
+    artifacts/perf/tanh_microbench.py): csrc/alu_probe.cu at B = 2^19
+    lanes of the reference's input, streams 1, 4, 8 and K 1024, 2048, 4096,
+    and csrc/tanh_probe.cu on a (512, 128) normal array, ops mul, tanh and
+    rational, K 1024 and 8192, each launch held against its plain version
+    (bit-equal; tanhf against torch.tanh within K * 2^-24); then the
+    path's sweeps with the counts set to 0 just before: card-paced times by
+    K, the marginal cost of a step (ns and SM cycles per step per 1024
+    lanes; ps per element per step) as JSON lines, and both kernels timed
+    for the kernels line beside their plain versions and bounds.
+11. shot noise (fid_noisy, draws 10) on the card: the N=7 NM and L-BFGS
+    pools (NOISY_POOL restarts, the noiseless pools' size; a smaller value
+    is printed as a cut) in the plain and the adaptive protocol (adp_tol
+    0.05), two PPO epochs at N=7,
+    1024 agents, T=500 on the per-step loop (the fused rollout gated off);
+    restarts/s and env-steps/s, the seconds the draws take (ms a trial, a
+    round, an epoch), the amplitude kernel's launches, which must rise on
+    every path; fidelities and rewards must be whole shot counts in the
+    plain protocol.  Then 1M float32 binomials on the card against the
+    same call on the CPU (one key with a shape, a batch of keys; both
+    samplers): at most 1e-3 of the draws may differ.
+12. the kernels JSON line (all ten kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
     events (the four zoo kernels at the batch of their path: 9216 and
     1024 for the lane-group ones, 131072 for the one-thread gradient
@@ -183,8 +205,10 @@ Phases:
     critic kernel's products against 989 TFLOP/s) and 3.35 TB/s, and
     library_ms: batched torch.linalg.eigh on the same matrices for kernels
     1-3, which computes the eigendecomposition only, none for the rollout
-    and critic kernels), then {"ok": true, "device": {...}} as the last
-    line.
+    and critic kernels; the probes' bounds count a multiply and an add as
+    two operations over 67 TFLOP/s, the issue-slot bound at one operation
+    a lane and cycle printed beside it), then {"ok": true, "device":
+    {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -1606,6 +1630,247 @@ def phase_ppo_checks():
         raise RuntimeError("the PPO epoch on the card disagrees with the CPU")
 
 
+#: the tanh probe's tanhf against torch.tanh on the card: every step moves
+#: a value below 1 by an ulp or two and the chain damps it by 0.999 (the
+#: bar of tests/test_torch_probes.py)
+def _tanh_tol(k):
+    return k * 2.0 ** -24
+
+
+def phase_probes():
+    """The probe path: both probe kernels held against their plain versions
+    at every shape of the path, then the path itself
+    (code_robchar_tpu_torch/perf/probes.py's sweeps) with the counts set to
+    0 just before.  Returns (launches, worst error, (ms, plain_ms, bound))
+    per kernel."""
+    from code_robchar_tpu_torch.ops import probes
+    from code_robchar_tpu_torch.perf import probes as path
+
+    dev = torch.device("cuda")
+    x, xt = path.alu_input(dev), path.tanh_input(dev)
+    worst = {"alu_probe": 0.0, "tanh_probe": 0.0}
+    for s in probes.ALU_STREAMS:
+        for k in path.ALU_KS:
+            got, want = probes.alu_probe(x, s, k), \
+                probes.alu_probe_plain(x, s, k)
+            ok = torch.equal(got, want)
+            print(f"alu_probe streams={s} K={k} B={x.shape[1]}: bit-equal to "
+                  f"its plain version {ok}")
+            if not ok:
+                raise RuntimeError("alu_probe differs from its plain version")
+    for op in probes.TANH_OPS:
+        for k in path.TANH_KS:
+            got, want = probes.tanh_probe(xt, op, k), \
+                probes.tanh_probe_plain(xt, op, k)
+            err = float((got - want).abs().max())
+            worst["tanh_probe"] = max(worst["tanh_probe"], err)
+            ok = torch.equal(got, want) if op != "tanh" else \
+                err <= _tanh_tol(k) and bool(torch.isfinite(got).all())
+            print(f"tanh_probe op={op} K={k} {tuple(xt.shape)}: max|kernel - "
+                  f"plain| {err:.3e} ("
+                  + ("bit-equal" if op != "tanh" else
+                     f"tanhf vs torch.tanh, bar {_tanh_tol(k):.2e}")
+                  + f") {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"tanh_probe op {op} disagrees with its "
+                                   f"plain version")
+
+    probes.ALU_LAUNCHES = probes.TANH_LAUNCHES = 0
+    alu, tanh = path.alu_sweep(x), path.tanh_sweep(xt)
+    launches = {"alu_probe": probes.ALU_LAUNCHES,
+                "tanh_probe": probes.TANH_LAUNCHES}
+    for s, res in alu.items():
+        print(json.dumps({f"alu_probe_{s}_streams": res}))
+    for op, res in tanh.items():
+        print(json.dumps({f"tanh_probe_{op}": res}))
+    print(f"probe path launches: {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the probe path missed a kernel: {launches}")
+
+    # the kernels line: the largest shape of each sweep (alu: 8 streams,
+    # K = 4096; tanh: the rational op, K = 8192), timed in the path's run
+    b, k_alu, k_tanh = x.shape[1], path.ALU_KS[-1], path.TANH_KS[-1]
+    alu_ms = alu[8]["times_ms_by_K"][str(k_alu)]
+    tanh_ms = tanh["rational"]["times_ms_by_K"][str(k_tanh)]
+    alu_plain = _time_ms(lambda: probes.alu_probe_plain(x, 8, k_alu), 1)
+    tanh_plain = _time_ms(
+        lambda: probes.tanh_probe_plain(xt, "rational", k_tanh), 1)
+    alu_bound = _bound(probes.alu_ops(b, k_alu), 4 * b * (8 + 3))
+    tanh_bound = _bound(probes.tanh_ops(xt.numel(), "rational", k_tanh),
+                        2 * 4 * xt.numel())
+    # a multiply and an add each take an issue slot of an FP32 lane: 132
+    # SMs x 128 lanes x 1.98 GHz
+    slots = 132 * 128 * 1.98e9
+    alu_slot_ms = probes.alu_ops(b, k_alu) / slots * 1e3
+    tanh_slot_ms = probes.tanh_ops(xt.numel(), "rational", k_tanh) / slots \
+        * 1e3
+    print(f"probe kernels: alu_probe 8 streams K={k_alu} B={b} {alu_ms:.5f} "
+          f"ms (plain {alu_plain:.3f} ms; bound {alu_bound[0]:.5f} ms "
+          f"({alu_bound[1]}, 67 TFLOP/s), {alu_slot_ms:.5f} ms at one "
+          f"operation an issue slot); tanh_probe rational K={k_tanh} "
+          f"{tuple(xt.shape)} {tanh_ms:.5f} ms (plain {tanh_plain:.3f} ms; "
+          f"bound {tanh_bound[0]:.5f} ms ({tanh_bound[1]}), "
+          f"{tanh_slot_ms:.5f} ms at one operation an issue slot)")
+    return {"alu_probe": (launches["alu_probe"], worst["alu_probe"],
+                          (alu_ms, alu_plain, alu_bound)),
+            "tanh_probe": (launches["tanh_probe"], worst["tanh_probe"],
+                           (tanh_ms, tanh_plain, tanh_bound))}
+
+
+#: restarts of the shot-noise phase's zoo pools (the width stays N = 7)
+NOISY_POOL = ZOO_POOL
+#: the largest share of binomial draws on the card that may differ from the
+#: same call on the CPU
+CARD_CPU_SHARE = 1e-3
+
+
+def _amp_counts():
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+
+    return cuda_jacobi.SYM_AMP_LAUNCHES + cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
+
+
+class _DrawClock:
+    """Host seconds spent in the shot-noise draws (ops/noise's two
+    protocols), each call bracketed by synchronisations; installed on the
+    module, which every caller reads at call time."""
+
+    def __init__(self):
+        from code_robchar_tpu_torch.ops import noise
+
+        self.noise, self.seconds, self.calls = noise, 0.0, 0
+        self.saved = (noise.shot_noise_fidelity, noise.adaptive_shot_fidelity)
+
+    def _wrap(self, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - start
+            self.calls += 1
+            return out
+        return timed
+
+    def __enter__(self):
+        self.noise.shot_noise_fidelity = self._wrap(self.saved[0])
+        self.noise.adaptive_shot_fidelity = self._wrap(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.noise.shot_noise_fidelity, self.noise.adaptive_shot_fidelity = \
+            self.saved
+
+
+def _hold_binomial_card_vs_cpu():
+    """1M float32 binomials on the card against the same call on the CPU:
+    2^19 under one key with a shape and 2^19 under a batch of keys, counts
+    10, 100 and 1000 over p in [0, 1], so both samplers run."""
+    from code_robchar_tpu_torch.ops import prng
+
+    rng = np.random.default_rng(4)
+    size = 1 << 19
+    p = torch.as_tensor(rng.uniform(0, 1, size).astype(np.float32))
+    count = torch.as_tensor(rng.choice([10, 100, 1000], size)
+                            .astype(np.float32))
+    inv = float((count * torch.minimum(p, 1 - p) <= 10).double().mean())
+    # the first draws on the card load torch's kernels; keep that out of
+    # the times below
+    prng.binomial(prng.key(0).cuda(), count[:64].cuda(), p[:64].cuda())
+    for form, key in (("one key", prng.key(1)),
+                      ("a batch of keys", prng.split(prng.key(1), size))):
+        start = time.perf_counter()
+        got = prng.binomial(key.cuda(), count.cuda(), p.cuda())
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - start
+        want = prng.binomial(key, count, p)
+        share = float((got.cpu() != want).double().mean())
+        ok = share <= CARD_CPU_SHARE and bool(torch.isfinite(got).all())
+        print(f"binomial card vs cpu, {form}: {size} float32 draws "
+              f"({inv:.3f} by inversion, the rest BTRS), {share:.3e} differ "
+              f"(at most {CARD_CPU_SHARE:g}); card {card_s:.3f} s "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("binomial on the card differs from the CPU")
+
+
+def phase_shot_noise():
+    """Shot noise (fid_noisy) on the card: the N=7 NM and L-BFGS pools with
+    draws 10, the plain and the adaptive protocol (adp_tol 0.05); two PPO
+    epochs at N=7, 1024 agents, T=500 on the per-step loop; the amplitude
+    kernel's count must rise on every path; 1M binomials card vs CPU."""
+    from code_robchar_tpu_torch.models import LBFGS, NMPlus, PPO_en
+    from code_robchar_tpu_torch.ops import prng
+
+    rates = {}
+    if NOISY_POOL < ZOO_POOL:
+        print(f"noisy zoo pools cut to {NOISY_POOL} restarts a run from the "
+              f"noiseless phase's {ZOO_POOL}, to fit the phase's time; N = 7 "
+              f"kept")
+    for cls in (NMPlus, LBFGS):
+        for adaptive in (False, True):
+            opt = _zoo_optimizer(cls, fid_noisy=True, draws=10,
+                                 adaptive=adaptive, adp_tol=0.05)
+            x0s = torch.as_tensor(opt.init_points(NOISY_POOL),
+                                  dtype=torch.float32, device="cuda")
+            keys = prng.split(prng.key(31), NOISY_POOL)
+            before = _amp_counts()
+            with _DrawClock() as clock:
+                start = time.perf_counter()
+                res = opt._run_batch(x0s, keys)
+                fid = res.fid.cpu().numpy()
+                wall = time.perf_counter() - start
+            used = _amp_counts() - before
+            rounds = opt.stats.get("trials", opt.stats.get("rounds"))
+            name = f"{cls.name}{' adaptive' if adaptive else ''}"
+            print(f"noisy zoo {name}: N=7 pool {NOISY_POOL}, draws 10: "
+                  f"{wall:.2f} s, {NOISY_POOL / wall:.1f} restarts/s; "
+                  f"{opt.stats}; amplitude kernel launches {used}; shot "
+                  f"draws {clock.seconds:.3f} s in {clock.calls} calls, "
+                  f"{clock.seconds / rounds * 1e3:.3f} ms a "
+                  f"{'trial' if cls is LBFGS else 'round'}; mean nfev "
+                  f"{float(res.nfev.double().mean()):.1f}; best fid "
+                  f"{fid.max():.4f}")
+            if used <= 0 or not np.isfinite(fid).all() or fid.min() < 0 or \
+                    fid.max() > 1 or (not adaptive and not np.allclose(
+                        fid * 10, np.round(fid * 10), atol=1e-5)):
+                raise RuntimeError(f"noisy {name}: no amplitude launch or "
+                                   f"fidelities that are not shot counts")
+            rates[name] = NOISY_POOL / wall
+
+    ppo = PPO_en(7, 0, 6, testing=True, fid_threshold=0.0, ham_noisy=True,
+                 fid_noisy=True, draws=10, num_agents=PPO_AGENTS,
+                 rollout_sweeps=4, device="cuda", dtype=torch.float32)
+    if not ppo.fused_rollout_fallback_reasons():
+        raise RuntimeError("the fused rollout is not gated off under shot "
+                           "noise")
+    epoch_fn = ppo._build_epoch(PPO_STEPS, 0.2, 3e-3, 1e-3, 1000, 200, 200,
+                                0.01)
+    st = ppo._init_agent(prng.split(prng.key(0), PPO_AGENTS))
+    before = _amp_counts()
+    walls = []
+    with _DrawClock() as clock:
+        for _ in range(2):
+            start = time.perf_counter()
+            st, out = epoch_fn(st)
+            rew = out.rewards.cpu().numpy()
+            walls.append(time.perf_counter() - start)
+    used = _amp_counts() - before
+    rate = PPO_AGENTS * PPO_STEPS / statistics.mean(walls)
+    print(f"noisy ppo: N=7 {PPO_AGENTS} agents x {PPO_STEPS} steps, draws "
+          f"10, per-step loop: epochs {walls} s, {rate:.1f} env-steps/s; "
+          f"amplitude kernel launches {used}; shot draws "
+          f"{clock.seconds / 2 * 1e3:.1f} ms an epoch in "
+          f"{clock.calls // 2} calls; best reward {rew.max():.1f}")
+    if used < 2 * PPO_STEPS or not np.isfinite(rew).all() or \
+            not np.allclose(rew * 10, np.round(rew * 10), atol=1e-5):
+        raise RuntimeError("the noisy PPO epoch missed the amplitude kernel "
+                           "or its rewards are not shot counts")
+    rates["ppo"] = rate
+    _hold_binomial_card_vs_cpu()
+    return rates
+
+
 def _run(phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -1625,6 +1890,8 @@ def main():
     ppo_err, ppo_ms = _run(phase_ppo_kernels)
     ppo_launches, ppo_rate, amp_err, amp_ms = _run(phase_ppo_path)
     _run(phase_ppo_checks)
+    probe = _run(phase_probes)
+    noisy = _run(phase_shot_noise)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -1664,14 +1931,20 @@ def main():
               None),
         entry("critic_train_bf16", "code_robchar_tpu/ops/pallas_critic.py:54",
               ppo_launches["critic_bf16"], ppo_err["critic_bf16"],
-              ppo_ms["critic_bf16"], None)]
+              ppo_ms["critic_bf16"], None),
+        entry("alu_probe", "artifacts/perf/roofline.py:272",
+              *probe["alu_probe"], None),
+        entry("tanh_probe", "artifacts/perf/tanh_microbench.py:31",
+              *probe["tanh_probe"], None)]
     print(f"summary: build {res.seconds:.2f} s; MC path {wall:.4f} s, "
           f"{rate:.1f} Hams/s, rim_checksum {checksum:.3f}; L-BFGS "
           f"{zoo['lbfgs'][1]:.1f} restarts/s, NM {zoo['nmplus'][1]:.1f} "
           f"restarts/s (N=7, pool {ZOO_POOL}); KS {ks}; PPO "
           f"{ppo_rate:.1f} env-steps/s (N=7, {PPO_AGENTS} agents), "
           f"one-thread amplitude launches on the PPO path "
-          f"{ppo_launches['amp']}; launch_floor_ms {floor}; card {smi}")
+          f"{ppo_launches['amp']}; launch_floor_ms {floor}; shot noise "
+          + ", ".join(f"{k} {v:.1f}" for k, v in noisy.items())
+          + f" restarts/s (PPO env-steps/s); card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,19 +7,24 @@ parity suite on the CPU.  It imports ``torch`` and numpy only — never jax,
 never the JAX package.
 
 Layout (the Monte-Carlo characterisation slice, the optimizer zoo's
-L-BFGS and Nelder-Mead slice and the PPO slice):
+L-BFGS and Nelder-Mead slice, the PPO slice, binomial shot noise and the
+measurement probes):
 
 - ``config``   dtype helpers, the device resolver, TF32 off
-- ``ops``      counter-based threefry PRNG (``prng``), chain Hamiltonians
-               (``chain``), structured noise, the lanes-layout assembly
-               and the fixed ensembles (``noise``), the plain Jacobi
+- ``ops``      counter-based threefry PRNG with jax's randint and binomial
+               (``prng``), chain Hamiltonians (``chain``), structured
+               noise, the lanes-layout assembly, the fixed ensembles and
+               the shot-noise protocols (``noise``), the plain Jacobi
                solvers, amplitudes and exact gradient (``realform``), the
                hand-written CUDA kernels' binding and dispatch
                (``cuda_jacobi``), the PPO rollout and critic kernels'
-               dispatch and plain versions (``rollout``, ``critic``),
-               Sobol restart streams (``sobol``)
+               dispatch and plain versions (``rollout``, ``critic``), the
+               probe kernels' (``probes``), Sobol restart streams
+               (``sobol``)
 - ``metrics``  RIM / Wasserstein metrics, DKW bands, the metric registry
-- ``mc``       the chunked Monte-Carlo sweep and its fused metric reduction
+- ``mc``       the chunked Monte-Carlo sweep, its fused metric reduction,
+               the bootstrap std of a statistic
+- ``perf``     the probe path: the probe kernels' K-sweeps on the card
 - ``models``   the zoo's batched objectives, run loop, L-BFGS and NMPlus;
                PPO's environment, actor-critic, masked Adam and trainer
 - ``utils``    the nvcc build of ``csrc/*.cu`` and its ctypes loader, the

@@ -6,6 +6,7 @@ from code_robchar_tpu_torch.mc.engine import (
     metric_tensors,
     arim_from_rims,
     characterise,
+    bootstrap_statistic_std,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "metric_tensors",
     "arim_from_rims",
     "characterise",
+    "bootstrap_statistic_std",
 ]

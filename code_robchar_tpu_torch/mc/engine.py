@@ -170,3 +170,21 @@ def arim_from_rims(rims) -> torch.Tensor:
     """Algorithm-level RIM: W1 of the trailing-axis RIM sample (over
     controllers) from delta(x-0) (generate_arim_all_fig5.py:119,166)."""
     return wd_from_ideal_zero(torch.clamp(torch.as_tensor(rims), 0.0, 1.0))
+
+
+def bootstrap_statistic_std(key: torch.Tensor, sample: torch.Tensor,
+                            statistic, bootsamples: int = 100
+                            ) -> torch.Tensor:
+    """Nonparametric bootstrap std (population) of a trailing-axis
+    statistic (mcsim.py:267-275 ``bootstrap_resampling_std``): the
+    resampling indices are ``prng.randint(key, (bootsamples, n), 0, n)``,
+    int64 for a float64 sample (the JAX package's x64 regime) and int32
+    otherwise, so the same key resamples as the JAX package does; all
+    ``bootsamples`` resamples are evaluated in one call of ``statistic``
+    over a (..., bootsamples, n) tensor."""
+    sample = torch.as_tensor(sample)
+    n = sample.shape[-1]
+    dtype = torch.int64 if sample.dtype == torch.float64 else torch.int32
+    idx = prng.randint(key.to(sample.device), (bootsamples, n), 0, n, dtype)
+    stats = statistic(sample[..., idx.long()])
+    return torch.std(stats, dim=-1, correction=0)

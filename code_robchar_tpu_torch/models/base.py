@@ -187,12 +187,10 @@ class ControlOptimizer:
 
     def fidelity_ss(self, x, noisy=False, ham_noisy=False,
                     use_fixed_ham=False, rH=None) -> float:
-        """Host convenience mirroring qnewton.py:383-423 (clean or
-        ham-noisy; shot noise is not ported yet)."""
-        if noisy:
-            raise NotImplementedError(
-                "fidelity_ss(noisy=True) needs binomial shot noise, not "
-                "ported yet (ROADMAP item 9)")
+        """Host convenience mirroring qnewton.py:383-423: the clean or
+        ham-noisy fidelity of one controller, with binomial shot noise
+        (the adaptive protocol when ``self.adaptive``) when ``noisy``; one
+        ``next_key()`` per draw, in the JAX package's order."""
         h = self.HH
         if use_fixed_ham and rH is not None:
             h = torch.as_tensor(rH, device=self.device)
@@ -202,8 +200,16 @@ class ControlOptimizer:
                 self.next_key().to(self.device), self.Nspin, self.noise,
                 complex_offdiag=False, dtype=h.dtype)
             h = h + zr
-        return float(objectives.fidelity_batch(h, self._controllers(x),
-                                               self.In, self.Out)[0])
+        fid = objectives.fidelity_batch(h, self._controllers(x), self.In,
+                                        self.Out)[0]
+        if noisy:
+            key = self.next_key().to(self.device)
+            if self.adaptive:
+                fid, _ = noise_ops.adaptive_shot_fidelity(
+                    key, fid, self.draws, self.adp_tol)
+            else:
+                fid = noise_ops.shot_noise_fidelity(key, fid, self.draws)
+        return float(fid)
 
     def fidelity_ss_av(self, x, test=False) -> float:
         """Mean fidelity over the fixed train (or test) ensemble."""

@@ -28,10 +28,12 @@ Faithful semantics (quirks preserved deliberately):
 - ``use_fixed_ham`` averages the PROPAGATOR over the pre-drawn ensemble
   before applying it (RLreinforce...:153-162) — not the fidelity.
 
-Port specifics: dtype and device are explicit, keys are the port's
-threefry keys (the same draws as the JAX package for the same key), and
-shot noise on the reward (``fid_noisy``) raises: it needs a bit-faithful
-``jax.random.binomial``, not ported yet (ROADMAP item 9).
+- ``fid_noisy`` puts binomial shot noise on the reward (the adaptive
+  protocol when ``adaptive``, billing ``extra + draws`` calls), drawn from
+  ``ks`` of ``kh, ks = split(key)``.
+
+Port specifics: dtype and device are explicit, and keys are the port's
+threefry keys (the same draws as the JAX package for the same key).
 """
 
 from __future__ import annotations
@@ -68,11 +70,6 @@ class EnvState(NamedTuple):
     final_time: torch.Tensor
 
 
-SHOT_NOISE_UNPORTED = ("fid_noisy: shot noise on the reward needs a "
-                       "bit-faithful jax.random.binomial, not ported yet "
-                       "(ROADMAP item 9)")
-
-
 def env_reset(cfg: EnvConfig, dtype: torch.dtype = torch.float32,
               device=None) -> Tuple[EnvState, torch.Tensor]:
     state = EnvState(action=torch.zeros(cfg.n, dtype=dtype, device=device),
@@ -100,11 +97,10 @@ def env_step(cfg: EnvConfig, h0: torch.Tensor, state: EnvState,
              with_true_fid: bool = True):
     """One control step.  Returns (state', obs, reward, true_fid, done,
     fcalls).  ``h0`` (and ``fixed_hams``) are real symmetric; the draws
-    come from ``split(key)[0]``, as in the JAX package.
+    come from ``split(key)``, as in the JAX package: the Hamiltonian noise
+    from the first key, the shot noise from the second.
     ``with_true_fid=False`` skips the noiseless fidelity (0 in its slot)."""
-    if cfg.fid_noisy:
-        raise NotImplementedError(SHOT_NOISE_UNPORTED)
-    kh, _ = prng.split(key)
+    kh, ks = prng.split(key)
     h0 = h0.real if h0.is_complex() else h0
     n = cfg.n
     eye = torch.eye(n, dtype=h0.dtype, device=h0.device)
@@ -141,10 +137,21 @@ def env_step(cfg: EnvConfig, h0: torch.Tensor, state: EnvState,
     else:
         true_fid = torch.zeros((), dtype=h0.dtype, device=h0.device)
 
+    fcalls = torch.ones((), dtype=torch.int32, device=h0.device)
+    reward = fid
+    if cfg.fid_noisy:
+        ks = ks.to(h0.device)
+        if cfg.adaptive:
+            reward, extra = noise_ops.adaptive_shot_fidelity(
+                ks, fid, cfg.draws, cfg.adp_tol)
+            fcalls = (extra + cfg.draws).to(torch.int32)
+        else:
+            reward = noise_ops.shot_noise_fidelity(ks, fid, cfg.draws)
+
     done = t > final_time
     state = EnvState(action=action, timestep=t, final_time=final_time)
     obs = torch.cat([action, t[None]])
-    return state, obs, fid, true_fid, done, torch.ones((), dtype=torch.int32)
+    return state, obs, reward, true_fid, done, fcalls
 
 
 def true_fidelity_batch(cfg: EnvConfig, h0: torch.Tensor,

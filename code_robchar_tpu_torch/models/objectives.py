@@ -12,9 +12,11 @@ controllers, with the same draws as the JAX package for the same key:
                     controller, its key folded from the lane index
                     (``_structured_draws_lanes``);
 - use_fixed_ham:    the mean fidelity over a pre-drawn ensemble;
-- fid_noisy:        binomial shot noise — not ported yet: it needs a port
-                    of ``jax.random.binomial`` (ROADMAP item 9), so these
-                    builders raise ``NotImplementedError`` for it.
+- fid_noisy:        binomial shot noise on each controller's fidelity (on
+                    the ensemble's mean under use_fixed_ham), its key
+                    folded from the lane index, optionally the adaptive
+                    Bayesian protocol (ops/noise.py), which bills its
+                    shots in-band.
 
 Every fidelity goes through ops/cuda_jacobi: the CUDA kernels for CUDA
 tensors, their plain versions for CPU ones.  Keys are prng keys; they may
@@ -28,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from code_robchar_tpu_torch.metrics.rim import wd_from_ideal
-from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+from code_robchar_tpu_torch.ops import cuda_jacobi, noise as noise_ops, prng
 
 
 class ObjectiveSpec(NamedTuple):
@@ -43,14 +45,6 @@ class ObjectiveSpec(NamedTuple):
     adp_tol: float
     fixed_hams: Optional[torch.Tensor]  # (R, n, n) pre-perturbed ensemble
     mul_fac: int                    # fcall multiplier (train_size or 1)
-
-
-def _refuse_shot_noise(spec: ObjectiveSpec) -> None:
-    if spec.fid_noisy:
-        raise NotImplementedError(
-            "fid_noisy (binomial shot noise, incl. the adaptive protocol) is "
-            "not ported yet: it needs a port of jax.random.binomial "
-            "(ROADMAP item 9)")
 
 
 def _real(h: torch.Tensor) -> torch.Tensor:
@@ -136,29 +130,47 @@ def _structured_draws_lanes(key, count, n, noise, dt, device):
 
 def make_infidelity_batch(spec: ObjectiveSpec):
     """(xs (K, d), key) -> (infids (K,), fcalls (K,)): the batched
-    objective of the noiseless, ham_noisy and fixed-ensemble regimes, with
-    the JAX package's key use (``kh, ks = split(key)``; ham noise from kh
-    folded with the lane index)."""
-    _refuse_shot_noise(spec)
+    objective of every regime, with the JAX package's key use (``kh, ks =
+    split(key)``; ham noise from kh and shot noise from ks, each folded
+    with the lane index).  The adaptive protocol bills ``extra + draws``
+    calls a controller, every other regime 1."""
     n = spec.h0.shape[-1]
     h0r = _real(spec.h0)
     fixed = _real(spec.fixed_hams) if spec.fixed_hams is not None else None
     fid_lanes = _make_fid_lanes(n, spec.in_spin, spec.out_spin)
 
+    def lane_keys(ks, k, device):
+        return prng.fold_in(ks.to(device), torch.arange(k, device=device))
+
     def infid(xs, key):
         k = xs.shape[0]
         calls = torch.ones(k, dtype=torch.int32, device=xs.device)
+        # the noiseless regimes draw nothing: no split
+        kh, ks = prng.split(key) if spec.ham_noisy or spec.fid_noisy \
+            else (None, None)
         if fixed is not None:
             # mean FIDELITY over the pre-drawn ensemble (qnewton.py:425-444)
             fids = ensemble_fidelities(fixed, xs, spec.in_spin, spec.out_spin)
-            return 1.0 - fids.sum(1) / fids.shape[1], calls
+            fid = fids.sum(1) / fids.shape[1]
+            if spec.fid_noisy:
+                fid = noise_ops.shot_noise_fidelity(
+                    lane_keys(ks, k, xs.device), fid, spec.draws)
+            return 1.0 - fid, calls
         zdiag = znn = None
         if spec.ham_noisy:
-            kh = prng.split(key)[0]
             zdiag, znn = _structured_draws_lanes(kh, k, n, spec.noise,
                                                  h0r.dtype, xs.device)
         a = _assemble_lanes(h0r, xs, zdiag, znn)
-        return 1.0 - fid_lanes(a, xs[:, n].abs().to(h0r.dtype)), calls
+        fid = fid_lanes(a, xs[:, n].abs().to(h0r.dtype))
+        if spec.fid_noisy:
+            keys = lane_keys(ks, k, xs.device)
+            if spec.adaptive:
+                fid, extra = noise_ops.adaptive_shot_fidelity(
+                    keys, fid, spec.draws, spec.adp_tol)
+                calls = (extra + spec.draws).to(torch.int32)
+            else:
+                fid = noise_ops.shot_noise_fidelity(keys, fid, spec.draws)
+        return 1.0 - fid, calls
 
     return infid
 

@@ -12,7 +12,8 @@ agent axis written out where the JAX package vmaps):
    (ops/rollout.py) when the regime allows it, else a per-step loop whose
    reward is the amplitude kernel ``csrc/sym_jacobi_amp.cu``
    (ops/cuda_jacobi.transfer_amp_sym), which also serves the fixed-ham
-   ensemble reward;
+   ensemble reward and carries the shot noise on the reward
+   (``fid_noisy``: ops/noise.py, the adaptive protocol billing its shots);
 2. values and log-probabilities in one batched forward, true fidelities in
    one amplitude-kernel batch, bootstrap values, GAE and the advantage
    normalisation;
@@ -26,20 +27,22 @@ agent axis written out where the JAX package vmaps):
    ``fused_critic=False``.
 
 On the CPU the kernels' plain versions run in their place.  All of an
-epoch's randomness comes from agent 0's key, drawn in three batched draws
-(policy noise, diagonal and nearest-neighbour Hamiltonian noise) with the
-JAX package's key schedule, so the port draws the same numbers; the
-per-agent keys are re-split from the fourth key.
+epoch's randomness comes from agent 0's key, drawn in batched draws
+(policy noise, diagonal and nearest-neighbour Hamiltonian noise, one shot
+key per step and agent) with the JAX package's key schedule, so the port
+draws the same numbers; the per-agent keys are re-split from the fourth
+key.
 
 Hyperparameter contract as the reference's, including its quirk that
 run() applies its own defaults for train_pi_iters / train_v_iters /
 clip_ratio / lrs and honours only the constructor's lam / gamma
 (ppo.py:216-231).  One env step bills 1 function call (x train_size under
-fixed-ham, ppo.py:364-371).
+fixed-ham, ppo.py:364-371), or ``extra + draws`` under the adaptive
+shot protocol.
 
-Not ported, and raising ``NotImplementedError``: shot noise on the reward
-(``fid_noisy``, adaptive shots; ROADMAP item 9), the Wasserstein value
-targets (``use_wass_value_targets``; item 10) and ``mesh`` (slice 5).
+Not ported, and raising ``NotImplementedError``: the Wasserstein value
+targets (``use_wass_value_targets``; ROADMAP item 10) and ``mesh`` (slice
+5).
 Nothing is compiled, so the JAX package's program cache has no
 counterpart: the epoch reads ``env.noise`` at each call.
 """
@@ -56,10 +59,10 @@ from code_robchar_tpu_torch import config
 from code_robchar_tpu_torch.models import actor_critic as ac
 from code_robchar_tpu_torch.models import optim
 from code_robchar_tpu_torch.models.env import (EnvConfig, EnvState,
-                                               Environment,
-                                               SHOT_NOISE_UNPORTED)
+                                               Environment)
 from code_robchar_tpu_torch.ops import critic as critic_ops
-from code_robchar_tpu_torch.ops import cuda_jacobi, prng, realform
+from code_robchar_tpu_torch.ops import cuda_jacobi, noise as noise_ops
+from code_robchar_tpu_torch.ops import prng, realform
 from code_robchar_tpu_torch.ops import rollout as rollout_ops
 from code_robchar_tpu_torch.utils.record import RunRecord, TopControllers
 from code_robchar_tpu_torch.utils.timeout import Deadline
@@ -347,8 +350,6 @@ class PPO_en:
         (st', EpochOut)``.  The drift is taken now; ``self.env.noise`` is
         read at each call (the Experiment driver trains one PPO per sigma
         cell, noise_analysis.py:343-344)."""
-        if self.fid_noisy:
-            raise NotImplementedError(SHOT_NOISE_UNPORTED)
         if self.use_wass_value_targets:
             raise NotImplementedError(
                 "use_wass_value_targets needs the single-point "
@@ -395,9 +396,9 @@ class PPO_en:
 
         def rollout(st: AgentState, noise: float):
             a_cnt, t_len = st.obs.shape[0], steps_per_epoch
-            # ALL epoch randomness from agent 0's key, in three batched
-            # draws (ppo.py:440-456 of the JAX package)
-            k_eps, k_hn, _, key_out = prng.split(st.key[0], 4)
+            # ALL epoch randomness from agent 0's key, in batched draws
+            # (ppo.py:440-456 of the JAX package)
+            k_eps, k_hn, k_shot, key_out = prng.split(st.key[0], 4)
             eps_all = prng.normal(k_eps, (t_len, a_cnt, d), dt)
             zdiag = znn = None
             if cfg.ham_noisy and fixed_r is None:
@@ -407,7 +408,11 @@ class PPO_en:
             keys_out = prng.split(key_out, a_cnt)
             if fused_rollout:
                 return rollout_fused(st, eps_all, zdiag, znn, keys_out)
-            return rollout_steps(st, eps_all, zdiag, znn, keys_out)
+            ks_all = None
+            if cfg.fid_noisy:
+                ks_all = prng.split(k_shot, t_len * a_cnt).reshape(
+                    t_len, a_cnt, 2).to(dev)
+            return rollout_steps(st, eps_all, zdiag, znn, ks_all, keys_out)
 
         def rollout_fused(st, eps_all, zdiag, znn, keys_out):
             a_cnt = st.obs.shape[0]
@@ -437,19 +442,34 @@ class PPO_en:
             obs_f = torch.cat([action, tstep[:, None]], dim=1)
             traj = (obs, out.a.permute(0, 2, 1), out.fid, obs2, out.done,
                     out.timeout)
-            return (env_st, obs_f, out.next_ep, keys_out), traj
+            return (env_st, obs_f, out.next_ep, keys_out), traj, None
 
-        def rollout_steps(st, eps_all, zdiag, znn, keys_out):
+        def rollout_steps(st, eps_all, zdiag, znn, ks_all, keys_out):
             def policy(obs):
                 mu, log_std = ac.actor(st.params, obs[:, None, :])
                 return mu[:, 0], torch.exp(log_std)
 
+            # the calls each step bills where the adaptive protocol sets
+            # them (ppo.py:548-558 of the JAX package), in step order
+            fcalls = []
+
             def reward(s, new_action, t):
                 if fixed_r is not None:
-                    return reward_fixed(new_action, t)
-                return sym_fid(rollout_ops.hamiltonian_lanes(
-                    h0, new_action.T, None if zdiag is None else zdiag[s].T,
-                    None if znn is None else znn[s].T), t)
+                    fid = reward_fixed(new_action, t)
+                else:
+                    fid = sym_fid(rollout_ops.hamiltonian_lanes(
+                        h0, new_action.T,
+                        None if zdiag is None else zdiag[s].T,
+                        None if znn is None else znn[s].T), t)
+                if not cfg.fid_noisy:
+                    return fid
+                if cfg.adaptive:
+                    fid, extra = noise_ops.adaptive_shot_fidelity(
+                        ks_all[s], fid, cfg.draws, cfg.adp_tol)
+                    fcalls.append(extra + cfg.draws)
+                    return fid
+                return noise_ops.shot_noise_fidelity(ks_all[s], fid,
+                                                     cfg.draws)
 
             (action, tstep, ep_len), traj = rollout_ops.rollout_loop(
                 policy, reward, st.env.action, st.env.timestep, st.ep_len,
@@ -458,13 +478,16 @@ class PPO_en:
             env_st = EnvState(action=action, timestep=tstep,
                               final_time=tstep)
             obs_f = torch.cat([action, tstep[:, None]], dim=1)
-            return (env_st, obs_f, ep_len.to(torch.int32), keys_out), traj
+            steps = torch.stack(fcalls) if fcalls else None
+            return (env_st, obs_f, ep_len.to(torch.int32), keys_out), traj, \
+                steps
 
         def epoch(st: AgentState):
             noise = float(self.env.noise)
             self._stage("start")
             with torch.no_grad():
-                (env_st, obs_f, ep_len, keys), traj = rollout(st, noise)
+                (env_st, obs_f, ep_len, keys), traj, step_calls = rollout(
+                    st, noise)
                 obs, act, rew, obs2, done, timeout = traj      # (T, A, ...)
                 t_len, a_cnt = rew.shape
                 self._stage("rollout")
@@ -514,6 +537,8 @@ class PPO_en:
                             env=env_st, obs=obs_f, ep_len=ep_len, key=keys)
             fcalls = torch.full((a_cnt, t_len), mul, dtype=torch.int32,
                                 device=dev)
+            if step_calls is not None:
+                fcalls = (step_calls.T * mul).to(torch.int32)
             return st, EpochOut(rewards=rew.T, true_fids=true_fid.T,
                                 stores=obs2.transpose(0, 1), fcalls=fcalls,
                                 kl=kl, pi_iters=pi_iters)

@@ -7,10 +7,17 @@ with the key split and draw order of the JAX package: ``split(key, 3)``
 gives the keys of the diagonal, the real nearest-neighbour couplings and
 the imaginary ones, in that order, so the port draws the same numbers as
 the reference for the same key.  Keys may carry leading batch dimensions.
+
+The shot-noise protocols (``shot_noise_fidelity``,
+``adaptive_shot_fidelity``) draw through ``prng.binomial``, which follows
+``jax.random.binomial`` (qnewton.py:402-423 of the reference program).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from code_robchar_tpu_torch import config
@@ -96,6 +103,98 @@ def assemble_lanes(h0r: torch.Tensor, xs: torch.Tensor, scales: torch.Tensor,
         ai[lo, hi] = nn2.T
         ai[hi, lo] = -nn2.T
     return ar, ai, xs[:, n].abs()
+
+
+def shot_noise_fidelity(key: torch.Tensor, fid: torch.Tensor,
+                        draws: int) -> torch.Tensor:
+    """Finite-measurement fidelity Binomial(draws, fid) / draws
+    (qnewton.py:407): one key and any fid, or a batch of keys (..., 2)
+    and one fid per key (...), the JAX package's function vmapped over
+    keys.
+
+    The division is taken as the JAX package's compiled programs (the
+    zoo's batch objectives, the PPO epoch) take it: XLA rewrites a division
+    by a constant into the product with the constant's reciprocal, rounded
+    to the dtype, so 7 shots of 10 read 0.7000000000000001 at float64.
+    jnp outside jit, and ``draws`` passed as a traced value, divide
+    exactly; the two differ by one ulp on some counts."""
+    fid = torch.clamp(fid, 0.0, 1.0)
+    sample = prng.binomial(key, draws, fid)
+    npdt = np.float32 if fid.dtype == torch.float32 else np.float64
+    return sample.to(fid.dtype) * float(npdt(1.0) / npdt(draws))
+
+
+#: the most batches of shots drawn per pass of the adaptive protocol: the
+#: batches' keys are a chain of splits, their draws one binomial call, and
+#: the exit is read once a pass
+ADAPTIVE_PASS = 16
+
+
+def _adaptive_batches(draws: int, adp_tol: float) -> int:
+    """Batches after which every element has stopped: var <= 1/4 / (a + b
+    + draws + 1), and a + b = 1 + j * draws after j batches, whatever the
+    shots (a pass that falls short by a rounding is followed by another)."""
+    need = math.ceil((0.25 / adp_tol ** 2 - 2) / draws - 1)
+    return max(1, min(ADAPTIVE_PASS, need))
+
+
+def adaptive_shot_fidelity(key: torch.Tensor, fid: torch.Tensor, draws: int,
+                           adp_tol: float):
+    """The adaptive Bayesian shot protocol (qnewton.py:410-423) for a batch
+    of keys (..., 2) and one fid per key (...): (estimate, calls), calls
+    int32.
+
+    A Beta posterior from a Jeffreys prior (a = b = 0.5): while the
+    posterior std sqrt(var) exceeds ``adp_tol``, ``k, ks = split(k)`` and a
+    batch of ``draws`` shots s ~ Binomial(draws, fid) from ks updates
+    a += s, b += draws - s, the reference's running estimate mean =
+    (a + s) / (a + b + draws), var = mean (1 - mean) / (a + b + draws + 1)
+    and calls += draws.  Each element stops on its own, as under the JAX
+    package's vmap: a finished element's state never changes again.  The
+    recurrence is taken a pass of batches at a time (as many as any element
+    can need, at most ``ADAPTIVE_PASS``): a and b are 0.5 plus sums of
+    whole numbers, exact in any order, so the pass gives the loop's
+    values."""
+    if not adp_tol > 0:
+        raise ValueError(f"adp_tol must be positive (the posterior std "
+                         f"never reaches {adp_tol}), got {adp_tol}")
+    fid = torch.clamp(fid, 0.0, 1.0)
+    rdt, dev = fid.dtype, fid.device
+    a = torch.full_like(fid, 0.5)
+    b = torch.full_like(fid, 0.5)
+    mean = a / (a + b)
+    var = mean * (1.0 - mean) / (a + b + 1.0)
+    calls = torch.zeros(fid.shape, dtype=torch.int32, device=dev)
+    done = torch.sqrt(var) <= adp_tol
+    batches = _adaptive_batches(draws, adp_tol)
+    step = torch.arange(1, batches + 1, dtype=torch.int32, device=dev)
+    k = key
+    while not bool(done.all()):
+        subs = []
+        for _ in range(batches):
+            k, ks = prng.split(k).unbind(-2)
+            subs.append(ks)
+        s = prng.binomial(torch.stack(subs, dim=-2), draws,
+                          fid[..., None].expand(fid.shape + (batches,))
+                          ).to(rdt)
+        aj = a[..., None] + torch.cumsum(s, -1)
+        bj = b[..., None] + torch.cumsum(draws - s, -1)
+        tot = aj + bj + draws
+        mj = (aj + s) / tot
+        vj = mj * (1.0 - mj) / (tot + 1.0)
+        # the batch after which each element's loop ends (the pass's last
+        # where it runs on)
+        fin = torch.sqrt(vj) <= adp_tol
+        ends = fin.any(-1)
+        last = torch.where(ends, fin.to(torch.int8).argmax(-1),
+                           batches - 1)[..., None]
+        live = ~done
+        a = torch.where(live, aj.gather(-1, last)[..., 0], a)
+        b = torch.where(live, bj.gather(-1, last)[..., 0], b)
+        mean = torch.where(live, mj.gather(-1, last)[..., 0], mean)
+        calls = torch.where(live, calls + draws * step[last[..., 0]], calls)
+        done = done | ends
+    return mean, calls
 
 
 def fixed_hamiltonian_ensemble(key: torch.Tensor, h0: torch.Tensor, scale,

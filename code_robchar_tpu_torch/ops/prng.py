@@ -16,7 +16,11 @@ implementation with ``jax_threefry_partitionable=True``:
   a 32-bit draw is the XOR of the two output words, a 64-bit draw their
   concatenation (high word first);
 - ``uniform``/``normal``: mantissa fill in [1, 2), shift to [lo, hi), then
-  ``sqrt(2) * erfinv(u)`` with ``lo = nextafter(-1, 0)``.
+  ``sqrt(2) * erfinv(u)`` with ``lo = nextafter(-1, 0)``;
+- ``randint``: two draws of the dtype's width from ``split(key)``, combined
+  modulo the span as jax's ``_randint`` does in unsigned arithmetic;
+- ``binomial``: jax's ``_binomial`` (inversion where ``count * q <= 10``,
+  the BTRS rejection sampler elsewhere, the same key split orders).
 
 A key is a tensor of dtype int64 and shape ``(..., 2)`` holding the two
 uint32 words; leading dimensions are a batch of keys (the counterpart of
@@ -29,6 +33,12 @@ variants), not ``torch.erfinv``: XLA's is less accurate (up to 1.5e-5 at
 float32 and 4e-10 at float64 in the tails), and the draws must follow
 the reference, not the exact function.  What remains is the rounding of
 ``log1p``, about one ulp.
+
+``binomial`` takes ``log`` (and ``log1p``) from torch, which rounds
+differently from XLA on about 14% of float32 inputs by one ulp.  The
+words and the uniforms are the reference's; a count differs only where
+such a one-ulp difference crosses a ``ceil``/``floor`` or an acceptance
+bound, on a small share of elements (the tests measure it).
 """
 
 from __future__ import annotations
@@ -214,3 +224,281 @@ def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     lo = np.nextafter(npdt(-1.0), npdt(0.0))
     u = uniform(key, shape, dtype, float(lo), 1.0)
     return float(npdt(np.sqrt(2))) * _erfinv(u)
+
+
+
+# ------------------------------------------------------------- randint
+
+def _mul_lo32(x: torch.Tensor, y) -> torch.Tensor:
+    """The low 32 bits of x * y for 0 <= x, y < 2**32, the wrapping
+    product of uint32, from 16-bit halves: every int64 product stays below
+    2**33, so nothing relies on how a device wraps an int64 overflow."""
+    lo = (x & 0xFFFF) * (y & 0xFFFF)
+    mid = ((x >> 16) * (y & 0xFFFF) + (x & 0xFFFF) * (y >> 16)) & 0xFFFF
+    return (lo + (mid << 16)) & _MASK
+
+
+def _mulmod(x: torch.Tensor, y: int, s: int) -> torch.Tensor:
+    """(x * y) mod s for 0 <= x, y < s <= 2**32, exactly: y in 16-bit
+    halves keeps every int64 product below 2**49."""
+    return ((x * (y >> 16)) % s * 65536 + x * (y & 0xFFFF)) % s
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``jax.random.randint`` for int32 (32-bit draws) or int64 (64-bit
+    draws, the dtype jax takes with x64 on): key (..., 2) -> (..., *shape)
+    in [minval, maxval).
+
+    jax's ``_randint``: ``k1, k2 = split(key)``, a draw of the dtype's width
+    from each, ``span = maxval - minval`` (1 where maxval <= minval, one
+    more where maxval lies past the dtype's range), the multiplier
+    ``(2**(nbits/2) mod span)**2 mod span`` and ``((hi mod span) *
+    multiplier + lo mod span) mod span``, in unsigned arithmetic that wraps
+    at 2**nbits.  ``minval`` and ``maxval`` are Python ints; spans above
+    2**32 raise ``ValueError``."""
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"randint draws int32 or int64, got {dtype}")
+    nbits = 32 if dtype == torch.int32 else 64
+    info = torch.iinfo(dtype)
+    minval, maxval = int(minval), int(maxval)
+    out_of_range = maxval > info.max
+    lo = min(max(minval, info.min), info.max)
+    hi = min(max(maxval, info.min), info.max)
+    span = (hi - lo) % 2 ** nbits
+    if hi <= lo:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) % 2 ** nbits
+    if not 0 < span <= 2 ** 32 - (nbits == 32):
+        raise ValueError(f"randint: span {maxval - minval} is out of the "
+                         f"range this port covers")
+    ks = split(key)
+    if nbits == 32:
+        higher = random_bits(ks[..., 0, :], shape)
+        lower = random_bits(ks[..., 1, :], shape)
+        mult = ((2 ** 16 % span) ** 2 & _MASK) % span
+        off = (_mul_lo32(higher % span, mult) + lower % span) & _MASK
+        off = off % span
+    else:
+        # a 64-bit draw is (word 0) * 2**32 + word 1; its residue from the
+        # two words' residues, exactly, since span <= 2**32
+        m32 = 2 ** 32 % span
+        mult = m32 * m32 % span
+
+        def residue(k):
+            w0, w1 = _counter_words(k, shape)
+            return (_mulmod(w0 % span, m32, span) + w1 % span) % span
+
+        off = (_mulmod(residue(ks[..., 0, :]), mult, span)
+               + residue(ks[..., 1, :])) % span
+    return (lo + off).to(dtype)
+
+
+# ------------------------------------------------------------- binomial
+
+#: iterations of a sampler's loop taken per pass: the key chain is walked
+#: one split at a time, the uniforms of all of a pass's iterations come
+#: from one threefry evaluation, and the loop's exit is read once a pass
+_PASS_ITERS = 16
+#: elements (keys x shape x iterations) one pass may hold
+_PASS_ELEMS = 1 << 23
+
+#: jax.random._stirling_approx_tail's table for k = 0..9
+_STIRLING_TAIL = (0.0810614667953272, 0.0413406959554092,
+                  0.0276779256849983, 0.02079067210376509,
+                  0.0166446911898211, 0.0138761288230707,
+                  0.0118967099458917, 0.0104112652619720,
+                  0.00925546218271273, 0.00833056343336287)
+
+
+def _pass_iters(numel: int) -> int:
+    return max(1, min(_PASS_ITERS, _PASS_ELEMS // max(numel, 1)))
+
+
+def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """num / den as an IEEE division: Python's ``num / tensor`` is a
+    reciprocal and a product, rounded twice."""
+    return torch.div(torch.tensor(num, dtype=den.dtype, device=den.device),
+                     den)
+
+
+def _chain(key: torch.Tensor, width: int, steps: int):
+    """``steps`` turns of a sampler loop's key split: ``subkey, key =
+    split(key)`` (width 2, inversion) or ``key, subkey_0, subkey_1 =
+    split(key, 3)`` (width 3, BTRS).  Returns the subkeys, (..., steps,
+    width - 1, 2), and the key after the last turn."""
+    carried = 1 if width == 2 else 0
+    subs = []
+    for _ in range(steps):
+        ks = split(key, width)
+        subs.append(ks[..., :1, :] if width == 2 else ks[..., 1:, :])
+        key = ks[..., carried, :]
+    return torch.stack(subs, dim=-3), key
+
+
+def _pass_uniforms(subs: torch.Tensor, shape, dtype, lead: int):
+    """Uniforms of a pass: subkeys (*lead, steps, w, 2) -> w tensors
+    (*lead, *shape, steps), the iteration axis last."""
+    u = uniform(subs, shape, dtype)          # (*lead, steps, w, *shape)
+    return [u.select(lead + 1, j).movedim(lead, -1)
+            for j in range(subs.shape[-2])]
+
+
+def _inversion(key, count, q, lead: int, shape):
+    """jax.random._binomial_inversion: the number of geometric waiting
+    times ``ceil(log u / log1p(-q))`` whose running sum stays within
+    ``count``, less one.  A done element's count never moves again (each
+    waiting time is at least 1), so extra iterations change nothing."""
+    dt = q.dtype
+    log1mq = torch.log1p(-q)[..., None]
+    num = torch.zeros_like(q)
+    gsum = torch.zeros_like(q)
+    # every waiting time is at least 1, so an element is done after at most
+    # floor(count) + 1 iterations: a pass of that many is the whole loop
+    usable = torch.where(torch.isfinite(count) & (count >= 0), count, 0.0)
+    steps = min(_pass_iters(q.numel()), int(usable.max()) + 1)
+    while True:
+        subs, key = _chain(key, 2, steps)
+        u, = _pass_uniforms(subs, shape, dt, lead)
+        geom = torch.ceil(torch.log(u) / log1mq)
+        # the running sum before each iteration, in the loop's order
+        sums = torch.cumsum(torch.cat([gsum[..., None], geom], -1), -1)
+        num = num + (sums[..., :-1] <= count[..., None]).sum(-1).to(dt)
+        gsum = sums[..., -1]
+        if not bool((gsum <= count).any()):
+            return num - 1
+
+
+def _stirling_approx_tail(k: torch.Tensor) -> torch.Tensor:
+    """jax.random._stirling_approx_tail, its clamp included: above 9 the
+    series is taken at k = 9."""
+    table = torch.tensor(_STIRLING_TAIL, dtype=k.dtype, device=k.device)
+    use_tail = k <= 9
+    k = torch.clamp(k, 0.0, 9.0)
+    kp1sq = (k + 1) * (k + 1)
+    approx = (1.0 / 12 - (1.0 / 360 - _rdiv(1.0 / 1260, kp1sq)) / kp1sq) \
+        / (k + 1)
+    idx = torch.where(use_tail, torch.floor(k), 0.0).to(torch.int64)
+    return torch.where(use_tail, table[idx], approx)
+
+
+def _btrs(key, count, p, lead: int, shape):
+    """jax.random._btrs, the transformed-rejection sampler.  Every
+    iteration sets k_out where it accepts, also for elements that accepted
+    before, and a batch member's loop ends at the first iteration after
+    which all of its elements have accepted: the pass picks, per element,
+    the last accepting iteration up to its member's end."""
+    dt = p.dtype
+    stddev = torch.sqrt(count * p * (1 - p))
+    b = 1.15 + 2.53 * stddev
+    a = -0.0873 + 0.0248 * b + 0.01 * p
+    c = count * p + 0.5
+    v_r = 0.92 - _rdiv(4.2, b)
+    r = p / (1 - p)
+    alpha = (2.83 + _rdiv(5.1, b)) * stddev
+    m = torch.floor((count + 1) * p)
+    tails = (_stirling_approx_tail(m) + _stirling_approx_tail(count - m))
+    a, b, c, v_r, r, alpha, m, tails, n = (
+        x[..., None] for x in (a, b, c, v_r, r, alpha, m, tails, count))
+    lead_shape = p.shape[:lead]
+    k_out = torch.full_like(p, -1.0)
+    accepted = torch.zeros(p.shape, dtype=torch.bool, device=p.device)
+    done = torch.zeros(lead_shape, dtype=torch.bool, device=p.device)
+    steps = _pass_iters(2 * p.numel())
+    it = torch.arange(steps, device=p.device)
+    while True:
+        subs, key = _chain(key, 3, steps)
+        u, v = _pass_uniforms(subs, shape, dt, lead)
+        u = u - 0.5
+        us = 0.5 - torch.abs(u)
+        accept1 = (us >= 0.07) & (v <= v_r)
+        k = torch.floor((2 * a / us + b) * u + c)
+        reject = (k < 0) | (k > n)
+        v = torch.log(v * alpha / (a / (us * us) + b))
+        ub = ((m + 0.5) * torch.log((m + 1) / (r * (n - m + 1)))
+              + (n + 1) * torch.log((n - m + 1) / (n - k + 1))
+              + (k + 0.5) * torch.log(r * (n - k + 1) / (k + 1))
+              + tails
+              - _stirling_approx_tail(k)
+              - _stirling_approx_tail(n - k))
+        accept = accept1 | (~reject & (v <= ub))
+        # the member's loop ends after the first iteration by which every
+        # element has accepted at least once
+        seen = accepted[..., None] | (accept.cumsum(-1) > 0)
+        all_in = seen.reshape(lead_shape + (-1, steps)).all(-2)
+        ends = all_in.any(-1)
+        stop = torch.where(ends, all_in.to(torch.int8).argmax(-1), steps - 1)
+        ran = (it <= stop[..., None]) & ~done[..., None]
+        ran = ran.reshape(lead_shape + (1,) * len(shape) + (steps,))
+        sel = accept & ran
+        last = torch.where(sel, it, -1).amax(-1)
+        pick = k.gather(-1, last.clamp_min(0)[..., None])[..., 0]
+        k_out = torch.where(last >= 0, pick, k_out)
+        accepted = accepted | sel.any(-1)
+        done = done | ends
+        if bool(done.all()):
+            return k_out
+
+
+def binomial(key: torch.Tensor, count, prob, shape=None,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``jax.random.binomial``: Binomial(count, prob) draws as floats.
+
+    key (..., 2): one key draws ``shape`` (default: count's and prob's
+    broadcast shape); a batch of keys draws ``shape`` (default ``()``)
+    under each key, as jax's binomial vmapped over keys, and count and prob
+    broadcast to (*batch, *shape).  The arithmetic is in prob's dtype
+    (float32 or float64); the result is in ``dtype`` (default prob's).
+
+    jax's ``_binomial``: inversion where ``count * q <= 10`` (q = min(p,
+    1 - p)) or the count is NaN or negative, BTRS elsewhere, both from the
+    same key, and ``count - k`` where p >= 0.5; NaN for a NaN or negative
+    count or a NaN or negative q, inf for an infinite count.  The loops run
+    while any element of a batch member is active, with no cap."""
+    prob = torch.as_tensor(prob, device=key.device)
+    if not prob.is_floating_point():
+        prob = prob.to(torch.float32)
+    dt = prob.dtype
+    dtype = dt if dtype is None else dtype
+    count = torch.as_tensor(count, device=key.device).to(dt)
+    lead_shape = tuple(key.shape[:-1])
+    if shape is None:
+        shape = () if lead_shape else torch.broadcast_shapes(count.shape,
+                                                             prob.shape)
+    shape = tuple(shape)
+    lead = len(lead_shape)
+    full = lead_shape + shape
+    count = torch.broadcast_to(count, full)
+    prob = torch.broadcast_to(prob, full)
+    if not prob.numel():
+        return torch.empty(full, dtype=dtype, device=key.device)
+
+    p_lt_half = prob < 0.5
+    q = torch.where(p_lt_half, prob, 1.0 - prob)
+    count_nan_or_neg = torch.isnan(count) | (count < 0.0)
+    count_inf = torch.isinf(count)
+    q_is_nan = torch.isnan(q)
+    q_l_0 = q < 0.0
+    q = torch.where(q_is_nan | q_l_0, 0.01, q)
+    use_inversion = count_nan_or_neg | (count * q <= 10.0)
+    count = torch.floor(count)
+
+    # each sampler runs over every element, as in jax (the other branch's
+    # elements take placeholder parameters); a branch that no element takes
+    # is skipped: its draws would be discarded
+    inv = torch.where(use_inversion, count, 0.0)
+    n_btrs = torch.where(use_inversion, 1e4, count)
+    q_btrs = torch.where(use_inversion, 0.5, q)
+    samples = torch.zeros_like(q)
+    if bool(use_inversion.any()):
+        samples = _inversion(key, inv, q, lead, shape)
+    if not bool(use_inversion.all()):
+        samples = torch.where(use_inversion, samples,
+                              _btrs(key, n_btrs, q_btrs, lead, shape))
+    invalid = q_l_0 | q_is_nan | count_nan_or_neg
+    samples = torch.where(invalid, float("nan"), samples)
+    samples = torch.where(count_inf & ~invalid, float("inf"), samples)
+    samples = torch.where(p_lt_half | count_nan_or_neg | q_is_nan | count_inf,
+                          samples, count - samples)
+    return samples.to(dtype)

@@ -568,3 +568,60 @@ def test_ppo_epoch_on_card_matches_cpu(dev):
     assert counts() == (before[0] + 1, before[1], before[2] + 1, before[3])
     err = (got.rewards.cpu() - want.rewards).abs().amax(1)
     assert int((err <= 1e-4).sum()) >= 15, err
+
+
+@pytest.mark.parametrize("streams", [1, 4, 8])
+def test_alu_probe_kernel_equals_plain_version(dev, streams):
+    from code_robchar_tpu_torch.ops import probes
+
+    x = torch.as_tensor(probes.reference_alu_input(5000), device=dev)
+    before = probes.ALU_LAUNCHES
+    got = probes.alu_probe(x, streams, 256)      # ragged last block
+    want = probes.alu_probe_plain(x, streams, 256)
+    torch.cuda.synchronize()
+    assert probes.ALU_LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op", ["mul", "tanh", "rational"])
+def test_tanh_probe_kernel_equals_plain_version(dev, op):
+    from code_robchar_tpu_torch.ops import probes
+
+    x = prng.normal(prng.key(0), (37, 100), torch.float32).to(dev)
+    before = probes.TANH_LAUNCHES
+    got = probes.tanh_probe(x, op, 300)
+    want = probes.tanh_probe_plain(x, op, 300)
+    torch.cuda.synchronize()
+    assert probes.TANH_LAUNCHES == before + 1 and got.shape == x.shape
+    if op == "tanh":        # tanhf against torch.tanh
+        assert float((got - want).abs().max()) <= 300 * 2.0 ** -24
+    else:
+        assert torch.equal(got, want)
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    from code_robchar_tpu_torch.ops import probes
+
+    x = torch.ones((10, 64), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        probes.alu_probe(x.double(), 4, 8)
+    with pytest.raises(ValueError):
+        probes.alu_probe(x, 2, 8)
+    with pytest.raises(ValueError, match="float32"):
+        probes.tanh_probe(x.t(), "mul", 8)
+
+
+@pytest.mark.parametrize("form", ["one key", "batch of keys"])
+def test_binomial_on_card_matches_cpu(dev, form):
+    """Both samplers (counts 10 and 1000 over p in [0, 1]) on the card
+    against the CPU: the words and uniforms are equal; a count may differ
+    where the two devices' log differ by an ulp across a bound."""
+    rng = np.random.default_rng(3)
+    size = 1 << 16
+    p = torch.as_tensor(rng.uniform(0, 1, size).astype(np.float32))
+    count = torch.as_tensor(rng.choice([10.0, 1000.0], size)
+                            .astype(np.float32))
+    key = prng.key(2) if form == "one key" else prng.split(prng.key(2), size)
+    got = prng.binomial(key.to(dev), count.to(dev), p.to(dev)).cpu()
+    want = prng.binomial(key, count, p)
+    assert float((got != want).double().mean()) <= 1e-3

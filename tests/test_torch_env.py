@@ -162,13 +162,31 @@ def test_environment_wrapper_matches_jax(kw):
 
 
 def test_shot_noise_raises_naming_its_item():
-    _, cfg = _cfg(3)
-    cfg = cfg._replace(fid_noisy=True)
-    st = env.EnvState(torch.zeros(3, dtype=torch.float64), _t(0.0), _t(30.0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        env.env_step(cfg, torch.eye(3, dtype=torch.float64), st,
-                     torch.zeros(3, dtype=torch.float64), _t(1.0),
-                     prng.key(0))
+    """Shot noise on the reward was refused until it was ported (ROADMAP
+    item 9); the step now draws it from ``ks`` of ``split(key)`` as the
+    JAX package does: the reward within one ulp of the reference's (the
+    reference divides by ``draws`` exactly when run outside jit, the port
+    as the compiled programs do, ops/noise.shot_noise_fidelity) and the
+    billed calls equal, in the plain and the adaptive protocol."""
+    h0 = np.asarray(jenv.chain.xx_hamiltonian_real(4))
+    rng = np.random.default_rng(3)
+    action = rng.normal(size=4)
+    jst = jenv.EnvState(jnp.asarray(action), jnp.asarray(2.0),
+                        jnp.asarray(30.0))
+    st = env.EnvState(_t(action), _t(2.0), _t(30.0))
+    for i in range(4):
+        adaptive = i % 2 == 1
+        jcfg, cfg = (c._replace(fid_noisy=True, adaptive=adaptive)
+                     for c in _cfg(4, ham_noisy=True))
+        jk, pk = _key(i)
+        a = rng.normal(size=4)
+        want = jenv.env_step(jcfg, jnp.asarray(h0), jst, jnp.asarray(a),
+                             jnp.asarray(1.5), jk)
+        got = env.env_step(cfg, _t(h0), st, _t(a), _t(1.5), pk)
+        assert float(got[2]) == pytest.approx(float(want[2]), rel=3e-16,
+                                              abs=1e-17)
+        assert int(got[5]) == int(want[5]) and got[5].dtype == torch.int32
+        assert (int(got[5]) >= 20) == adaptive
 
 
 def test_env_reset():

@@ -15,7 +15,8 @@ optim, ppo) against the JAX package, on the CPU at small sizes.
   versions on the CPU) and fused_rollout=False, fused_critic=False (the
   per-step loop and the autograd value loop).
 - The KL gate, run() in its budget and threshold modes, the fixed-ham
-  billing, the gate diagnostics, and what raises.
+  billing, the gate diagnostics, and what raises (the Wasserstein value
+  targets also under shot noise, which runs: tests/test_torch_shot_noise.py).
 """
 
 import numpy as np
@@ -284,7 +285,9 @@ def test_fallback_reasons_are_signalled(capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("kw,item", [(dict(fid_noisy=True), "item 9"),
+@pytest.mark.parametrize("kw,item", [(dict(fid_noisy=True,
+                                          use_wass_value_targets=True),
+                                     "item 10"),
                                      (dict(use_wass_value_targets=True),
                                       "item 10"),
                                      (dict(mesh=object()), "slice 5")])

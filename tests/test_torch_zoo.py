@@ -221,12 +221,18 @@ def test_structured_draws_and_fixed_ensemble_match_jax():
 
 
 def test_shot_noise_and_mesh_are_refused():
+    """Shot noise was refused until it was ported (ROADMAP item 9): the
+    objective and ``fidelity_ss(noisy=True)`` now run (held against the
+    JAX package in tests/test_torch_shot_noise.py) and give whole tenths of
+    draws 10; mesh and the Wasserstein cost outside L-BFGS still raise."""
     _, ts = _specs(4, "noiseless")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        objectives.make_infidelity_batch(ts._replace(fid_noisy=True))
+    f, calls = objectives.make_infidelity_batch(ts._replace(fid_noisy=True))(
+        _t(_xs(4, 12)), prng.key(0))
+    assert torch.equal(calls, torch.ones(12, dtype=torch.int32))
+    assert torch.allclose(f * 10, torch.round(f * 10), atol=1e-12)
     opt = NMPlus(4, 0, 2, testing=True, **F64)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        opt.fidelity_ss(np.ones(5), noisy=True)
+    fid = opt.fidelity_ss(np.ones(5), noisy=True)
+    assert 0.0 <= fid <= 1.0 and abs(fid * 10 - round(fid * 10)) < 1e-12
     with pytest.raises(NotImplementedError, match="slice 5"):
         LBFGS(4, 0, 2, testing=True, mesh=object(), **F64)
     with pytest.raises(NotImplementedError):
