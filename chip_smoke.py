@@ -195,9 +195,34 @@ Phases:
     plain protocol.  Then 1M float32 binomials on the card against the
     same call on the CPU (one key with a shape, a batch of keys; both
     samplers): at most 1e-3 of the draws may differ.
-12. the kernels JSON line (all ten kernels: launches on their paths, the
+12. Adam and SNOB at full width (N=7, 0 -> 6, landscape exploration,
+    float32 on the card).  First the zoo kernels held against their plain
+    versions at this path's shapes: Adam's 64 streams, SNOB's round of
+    ZOO_POOL x 10 = 81,920 candidates (Sobol points across the box) and
+    run()'s 128 x 10 = 1,280.  Then, each with the four zoo kernels' counts
+    set to 0 just before and read just after: Adam.run() with its 64
+    streams and 1000-step segments on a budget of 64 x 5000 fcalls (five
+    segments, the fifth a restart segment), noiseless, then one segment
+    under ham noise (sigma 0.05): segments/s, steps/s, probes per stream,
+    best_fid, the top-c store's size; the gradient's lane-group kernel
+    must be launched once a step and a probe round, the amplitude's once a
+    step and once for the true fidelities, the one-thread kernels never.
+    SNOB._run_batch on ZOO_POOL restarts (key(25) a warm-up, key(26..28)
+    timed; median, restarts/s): the rounds' 81,920 lanes take the
+    one-thread amplitude kernel 30 times a run, the starts' evaluation and
+    the true fidelities the lane-group one twice.  SNOB.run() at its batch
+    of 128 on a budget of 128 x 300 x 3: the lane-group amplitude kernel
+    32 times a batch.  Last,
+    card against CPU at N=4, float32 (256 Adam streams over a 50-step
+    segment and a 50-step restart segment, whose probes a stream and table
+    pointers must be equal on both devices; 256 SNOB restarts): the
+    restarts ending > 1e-3 apart beside the CPU against itself with the
+    starts moved one ulp, and the fidelities' two-sample KS < 0.12 (the
+    zoo's gate).
+13. the kernels JSON line (all ten kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
-    events (the four zoo kernels at the batch of their path: 9216 and
+    events (the four zoo kernels' launches on the paths of phases 5, 8 and
+    12, timed at the batch of their path: 9216 and
     1024 for the lane-group ones, 131072 for the one-thread gradient
     kernel, the PPO epoch's 512,000 for the one-thread amplitude kernel),
     bound_ms from this run's shapes and the hand counts of
@@ -842,14 +867,20 @@ def _zoo_counts():
             "sym_jacobi_grad_group": cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES}
 
 
+def _reset_zoo_counts():
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+
+    cuda_jacobi.SYM_AMP_LAUNCHES = cuda_jacobi.SYM_GRAD_LAUNCHES = 0
+    cuda_jacobi.SYM_AMP_GROUP_LAUNCHES = 0
+    cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES = 0
+
+
 def phase_zoo_path(worst):
     from code_robchar_tpu_torch.models import LBFGS, NMPlus
     from code_robchar_tpu_torch.ops import cuda_jacobi, prng, realform
 
     out, ends = {}, {}
-    cuda_jacobi.SYM_AMP_LAUNCHES = cuda_jacobi.SYM_GRAD_LAUNCHES = 0
-    cuda_jacobi.SYM_AMP_GROUP_LAUNCHES = 0
-    cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES = 0
+    _reset_zoo_counts()
     for cls, warm, timed in ((LBFGS, 5, (7, 8, 9)), (NMPlus, 15, (16, 17, 18))):
         opt = _zoo_optimizer(cls)
         before = _zoo_counts()
@@ -1015,6 +1046,24 @@ def _parted(a, b):
     return int(((a.x.cpu() - b.x.cpu()).abs().amax(1) > 1e-3).sum())
 
 
+def _starts_runs(x0, keys, make, drive=None):
+    """The runs of a card-vs-CPU hold: ``run(device, nudge=False, **kw)``
+    is ``drive(opt, x, keys)`` (one ``_run_batch`` by default) for ``opt =
+    make(device, **kw)`` on the float32 starts ``x0``, moved one ulp up
+    when ``nudge`` (the witness of how far a rounding parts the runs).
+    Also returns ``last``, the optimizer of the last run on each device."""
+    last = {}
+
+    def run(device, nudge=False, **kw):
+        x = torch.as_tensor(x0, dtype=torch.float32, device=device)
+        if nudge:
+            x = torch.nextafter(x, torch.full_like(x, float("inf")))
+        opt = last[device] = make(device, **kw)
+        return (drive or type(opt)._run_batch)(opt, x, keys)
+
+    return run, last
+
+
 def _zoo_card_vs_cpu(cls):
     """32 restarts at N=4, float32, through the kernels on the card against
     the plain versions on the CPU.  Over their first iterations (L-BFGS
@@ -1029,14 +1078,9 @@ def _zoo_card_vs_cpu(cls):
     from code_robchar_tpu_torch.ops import cuda_jacobi, prng, realform
 
     x0 = cls(4, 0, 2, testing=True, seed=2, device="cpu").init_points(32)
-    keys = prng.split(prng.key(0), 32)
-
-    def run(device, nudge=False, **kw):
-        x = torch.as_tensor(x0, dtype=torch.float32, device=device)
-        if nudge:
-            x = torch.nextafter(x, torch.full_like(x, float("inf")))
-        return cls(4, 0, 2, testing=True, seed=2, lane_width=16,
-                   device=device, **kw)._run_batch(x, keys)
+    run, _ = _starts_runs(x0, prng.split(prng.key(0), 32), lambda device, **kw:
+                          cls(4, 0, 2, testing=True, seed=2, lane_width=16,
+                              device=device, **kw))
 
     first = {"maxiter": 3} if cls is LBFGS else {"maxfev": 30}
     got, want = run("cuda", **first), run("cpu", **first)
@@ -1456,7 +1500,7 @@ def phase_ppo_path():
     ppo.stage_hook = mark
     rollout.LAUNCHES_REG = rollout.LAUNCHES = 0
     critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
-    cuda_jacobi.SYM_AMP_LAUNCHES = 0
+    _reset_zoo_counts()
     for _ in range(2):
         st, out = epoch_fn(st)
         float(out.rewards.sum())
@@ -1871,6 +1915,225 @@ def phase_shot_noise():
     return rates
 
 
+#: Adam's streams (its default batch) and the segments of its noiseless
+#: run: five of 1000 steps, the fifth ending on the 5000-update restart
+#: boundary
+ADAM_STREAMS = 64
+ADAM_SEGMENTS = 5
+#: SNOB.run()'s budget: three batches of its default 128 restarts
+SNOB_RUN_BUDGET = 128 * 300 * 3
+
+
+def _expect_counts(label, used, want):
+    """Fail unless the four zoo kernels' counts ``used`` are those of
+    ``want``, a list of (kernel, launches) (the kernels not named there:
+    0)."""
+    full = dict.fromkeys(used, 0)
+    for k, n_launch in want:
+        full[k] += n_launch
+    print(f"{label}: zoo kernel launches {used} (expected {full})")
+    if used != full:
+        raise RuntimeError(f"{label} did not launch the kernels its shapes "
+                           f"are routed to: {used}, expected {full}")
+
+
+def _adam_run(label, segments, **kw):
+    """Adam.run() at N=7 on the card with its 64 streams on a budget of
+    ``segments`` segments; returns the optimizer, the steps a stream took,
+    the wall seconds and the counts of its launches."""
+    from code_robchar_tpu_torch.models import Adam
+
+    opt = _zoo_optimizer(Adam, **kw)
+    budget = ADAM_STREAMS * segments * opt.segment_its
+    opt.run_until_completion_its = budget
+    opt.fid_threshold = 0.0
+    _reset_zoo_counts()
+    start = time.perf_counter()
+    opt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    used = _zoo_counts()
+    rec = opt.record
+    steps = segments * opt.segment_its
+    probes = rec["func_calls"] - ADAM_STREAMS * steps
+    fid = rec["best_fid"]
+    print(f"adam path {label}: N=7, {ADAM_STREAMS} streams, segments of "
+          f"{opt.segment_its} steps, budget {budget}: {wall:.2f} s, "
+          f"{segments / wall:.3f} segments/s, {steps / wall:.1f} steps/s; "
+          f"func_calls {rec['func_calls']}, iterations {rec['iterations']}, "
+          f"probes {probes} ({probes / ADAM_STREAMS:.2f} a stream, "
+          f"{opt.stats['probe_rounds']} probe rounds in the last segment); "
+          f"best_fid {fid!r}, top-c store {len(rec.get('controllers', []))}")
+    if rec["func_calls"] + 1 < budget or not rec.get("controllers") or \
+            fid is None or not 0.0 <= fid <= 1.0 + 1e-5:
+        raise RuntimeError(f"adam {label}: the run did not finish its budget "
+                           f"or recorded no finite fidelity")
+    return opt, steps, wall, used
+
+
+def _adam_restart_segment(opt, x, keys):
+    """A plain segment, then the streams' step counts set one segment
+    short of the restart cadence, then the restart segment."""
+    from code_robchar_tpu_torch.models import adam
+
+    opt._run_batch(x, keys)
+    w, m, v, it, ptr = opt._stream
+    opt._stream = (w, m, v, torch.full_like(
+        it, adam._RESTART_EVERY - opt.segment_its), ptr)
+    return opt._run_batch(x, keys)
+
+
+def _adam_snob_card_vs_cpu():
+    """256 Adam streams over a 50-step segment and a 50-step restart
+    segment, and 256 SNOB restarts, at N=4, float32, through the kernels
+    on the card and the plain versions on the CPU; gated on the
+    fidelities' two-sample KS, the restarts ending apart printed beside
+    the CPU against itself with the starts moved one ulp.  Adam's restart
+    probes Sobol candidates that are the same numbers on both devices, so
+    its probes a stream and its table pointers must agree exactly."""
+    import scipy.stats
+
+    from code_robchar_tpu_torch.models import SNOB, Adam
+    from code_robchar_tpu_torch.ops import prng
+
+    kw = dict(testing=True, seed=2, fid_threshold=0.0,
+              run_until_told_to_stop=True, run_until_completion_its=10**9,
+              landscape_exploration=True, dtype=torch.float32)
+    ks_all = {}
+    for cls, extra, drive in ((Adam, dict(segment_its=50),
+                               _adam_restart_segment), (SNOB, {}, None)):
+        x0 = cls(4, 0, 2, device="cpu", **kw, **extra).init_points(256)
+        run, last = _starts_runs(x0, prng.split(prng.key(0), 256),
+                                 lambda device: cls(4, 0, 2, device=device,
+                                                    **kw, **extra), drive)
+        card, cpu = run("cuda"), run("cpu")
+        ok = True
+        if cls is Adam:
+            ptrs = [last[dev]._stream[4].cpu() for dev in ("cuda", "cpu")]
+            probes = card.nfev.cpu() - 50
+            ok = bool((card.nfev.cpu() == cpu.nfev).all()) and \
+                bool((ptrs[0] == ptrs[1]).all()) and \
+                bool((ptrs[0] == probes).all()) and int(probes.min()) >= 1
+            print(f"adam restart segment card vs cpu: probes a stream "
+                  f"{int(probes.min())}..{int(probes.max())}, total "
+                  f"{int(probes.sum())}; probes and table pointers equal "
+                  f"on all 256 streams: {'ok' if ok else 'FAIL'}")
+        ks = float(scipy.stats.ks_2samp(card.fid.cpu().numpy(),
+                                        cpu.fid.numpy())[0])
+        witness = _parted(cpu, run("cpu", nudge=True))
+        ok = ok and ks < KS_GATE and bool(torch.isfinite(card.fid).all())
+        print(f"{cls.name} card vs cpu (N=4, 256 restarts, f32): "
+              f"{_parted(card, cpu)}/256 ending > 1e-3 apart (the CPU vs "
+              f"itself, starts moved one ulp: {witness}/256); max |dfid| "
+              f"{float((card.fid.cpu() - cpu.fid).abs().max()):.3e}; KS "
+              f"{ks:.4f} (gate {KS_GATE}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{cls.name}: card and CPU outcomes differ")
+        ks_all[cls.name] = ks
+    return ks_all
+
+
+def phase_adam_snob(worst):
+    from code_robchar_tpu_torch.models import SNOB, Adam
+    from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+
+    dev = torch.device("cuda")
+    launches = dict.fromkeys(AMP_KERNELS + GRAD_KERNELS, 0)
+
+    def add(used):
+        for k, v in used.items():
+            launches[k] += v
+
+    # the kernels at this path's shapes, before the counted runs
+    adam = _zoo_optimizer(Adam)
+    xs = torch.as_tensor(adam.init_points(ADAM_STREAMS), dtype=torch.float32,
+                         device=dev)
+    _hold_zoo_kernels("adam streams", *_lanes_of(adam, xs), adam.HH, xs, 0,
+                      6, worst)
+    snob = _zoo_optimizer(SNOB)
+    for label, b in (("snob pool round", ZOO_POOL * 10),
+                     ("snob run() round", 128 * 10)):
+        xs = torch.as_tensor(snob.init_points(b), dtype=torch.float32,
+                             device=dev)
+        _hold_zoo_kernels(label, *_lanes_of(snob, xs), snob.HH, xs[:1024],
+                          0, 6, worst)
+
+    grad_at = cuda_jacobi.grad_route(7, ADAM_STREAMS)
+    amp_at = cuda_jacobi.amp_route(7, ADAM_STREAMS)
+    opt, steps, wall, used = _adam_run("noiseless", ADAM_SEGMENTS)
+    _expect_counts("adam path noiseless", used, [
+        (grad_at, steps + opt.stats["probe_rounds"]),
+        (amp_at, steps + ADAM_SEGMENTS)])
+    add(used)
+    if opt.stats["probe_rounds"] < 1:
+        raise RuntimeError("adam: the fifth segment did not restart")
+    out = {"adam_steps_s": steps / wall}
+    opt, steps, wall, used = _adam_run("ham_noisy sigma 0.05", 1,
+                                       ham_noisy=True, noise=0.05)
+    _expect_counts("adam path ham_noisy", used, [(grad_at, steps),
+                                                 (amp_at, steps + 1)])
+    add(used)
+    out["adam_noisy_steps_s"] = steps / wall
+
+    rounds = snob.budget // 10
+
+    def run(seed):
+        x0s = torch.as_tensor(snob.init_points(ZOO_POOL), dtype=torch.float32,
+                              device=dev)
+        res = snob._run_batch(x0s, prng.split(prng.key(seed), ZOO_POOL))
+        fid = res.fid.cpu().numpy()
+        if fid.shape != (ZOO_POOL,) or not np.isfinite(fid).all() or \
+                fid.min() < -1e-5 or fid.max() > 1 + 1e-5 or \
+                not bool((res.nfev == snob.budget).all()):
+            raise RuntimeError("snob: bad batch result")
+        return fid
+
+    _reset_zoo_counts()
+    run(25)
+    times = []
+    for seed in (26, 27, 28):
+        start = time.perf_counter()
+        fid = run(seed)
+        times.append(time.perf_counter() - start)
+    used = _zoo_counts()
+    wall = statistics.median(times)
+    print(f"snob path: N=7 pool {ZOO_POOL}, {rounds} rounds of "
+          f"{ZOO_POOL * 10} lanes: wall {times} s, median {wall:.4f} s, "
+          f"{ZOO_POOL / wall:.1f} restarts/s; best fid {fid.max():.6f}")
+    # the rounds' lanes (the one-thread kernel at ZOO_POOL = 8192) and the
+    # starts' first evaluation and the true fidelities (the lane-group one)
+    _expect_counts("snob path, 4 runs", used, [
+        (cuda_jacobi.amp_route(7, ZOO_POOL * 10), 4 * rounds),
+        (cuda_jacobi.amp_route(7, ZOO_POOL), 4 * 2)])
+    add(used)
+    out["snob_restarts_s"] = ZOO_POOL / wall
+
+    ropt = _zoo_optimizer(SNOB)
+    ropt.run_until_completion_its = SNOB_RUN_BUDGET
+    ropt.fid_threshold = 0.0
+    _reset_zoo_counts()
+    start = time.perf_counter()
+    ropt.run()
+    torch.cuda.synchronize()
+    rec = ropt.record
+    print(f"snob budget run: N=7, batch {ropt._batch_size()}, budget "
+          f"{SNOB_RUN_BUDGET}: {time.perf_counter() - start:.2f} s, "
+          f"func_calls {rec['func_calls']}, repeats {rec['repeats']}, "
+          f"best_fid {rec['best_fid']!r}, top-c store "
+          f"{len(rec.get('controllers', []))}")
+    if not rec.get("controllers") or rec["func_calls"] + 1 < SNOB_RUN_BUDGET:
+        raise RuntimeError("the SNOB budget run did not finish its budget")
+    used = _zoo_counts()
+    batches = rec["repeats"] // 128
+    _expect_counts("snob budget run", used, [
+        (cuda_jacobi.amp_route(7, 128 * 10), batches * rounds),
+        (cuda_jacobi.amp_route(7, 128), batches * 2)])
+    add(used)
+
+    out["ks"] = _adam_snob_card_vs_cpu()
+    return launches, out
+
+
 def _run(phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -1892,6 +2155,7 @@ def main():
     _run(phase_ppo_checks)
     probe = _run(phase_probes)
     noisy = _run(phase_shot_noise)
+    adam_snob_launches, adam_snob = _run(phase_adam_snob, zoo_err)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -1910,9 +2174,12 @@ def main():
 
     amp_at, grad_at = "code_robchar_tpu/ops/pallas_jacobi.py:356", \
         "code_robchar_tpu/ops/pallas_jacobi.py:408"
-    # the one-thread amplitude kernel: launches, error and times from the
-    # PPO path's own batch (phase 8)
+    # the one-thread amplitude kernel: launches on the PPO path and the
+    # SNOB pool's rounds; error and times from the PPO path's own batch
+    # (phase 8)
     zoo_launches["sym_jacobi_amp"] = ppo_launches["amp"]
+    for name, n_launch in adam_snob_launches.items():
+        zoo_launches[name] += n_launch
     zoo_err["sym_jacobi_amp"] = max(zoo_err["sym_jacobi_amp"], amp_err)
     kernels = [
         entry("herm_jacobi_fidelity",
@@ -1944,7 +2211,11 @@ def main():
           f"one-thread amplitude launches on the PPO path "
           f"{ppo_launches['amp']}; launch_floor_ms {floor}; shot noise "
           + ", ".join(f"{k} {v:.1f}" for k, v in noisy.items())
-          + f" restarts/s (PPO env-steps/s); card {smi}")
+          + f" restarts/s (PPO env-steps/s); Adam (N=7, 64 streams) "
+          f"{adam_snob['adam_steps_s']:.1f} steps/s, ham_noisy "
+          f"{adam_snob['adam_noisy_steps_s']:.1f}; SNOB "
+          f"{adam_snob['snob_restarts_s']:.1f} restarts/s (N=7, pool "
+          f"{ZOO_POOL}); card vs cpu KS {adam_snob['ks']}; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,8 @@ parity suite on the CPU.  It imports ``torch`` and numpy only — never jax,
 never the JAX package.
 
 Layout (the Monte-Carlo characterisation slice, the optimizer zoo's
-L-BFGS and Nelder-Mead slice, the PPO slice, binomial shot noise and the
-measurement probes):
+registry families L-BFGS, Nelder-Mead, Adam and SNOB, the PPO slice,
+binomial shot noise and the measurement probes):
 
 - ``config``   dtype helpers, the device resolver, TF32 off
 - ``ops``      counter-based threefry PRNG with jax's randint and binomial
@@ -25,8 +25,9 @@ measurement probes):
 - ``mc``       the chunked Monte-Carlo sweep, its fused metric reduction,
                the bootstrap std of a statistic
 - ``perf``     the probe path: the probe kernels' K-sweeps on the card
-- ``models``   the zoo's batched objectives, run loop, L-BFGS and NMPlus;
-               PPO's environment, actor-critic, masked Adam and trainer
+- ``models``   the zoo's batched objectives, run loop, L-BFGS, NMPlus,
+               Adam and SNOB, and their registry; PPO's environment,
+               actor-critic, masked Adam and trainer
 - ``utils``    the nvcc build of ``csrc/*.cu`` and its ctypes loader, the
                record protocol, deadlines, JSON IO
 - ``csrc``     CUDA C++ kernel sources (sm_90a) and their shared header

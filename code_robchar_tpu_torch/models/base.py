@@ -10,7 +10,12 @@ landscape-exploration top-c collection), the same wall-clock timeout
 
 Restarts run in device batches: each optimizer implements
 ``_run_batch(x0s, keys) -> BatchResult`` over a batch of restarts, and the
-host loop here does the record bookkeeping between batches.
+host loop here does the record bookkeeping between batches.  A family
+whose batch is a set of persistent streams (Adam) sets
+``persistent_streams``: the run loop then never caps, shrinks or redraws
+its batch, and draws its start points once.  A batch may also carry
+per-iteration candidates (``BatchResult.cand_x`` / ``cand_fid``), which
+the loop offers to the top-c store after the batch's final points.
 
 Port specifics: ``device`` and ``dtype`` are explicit (the kernels take
 float32 on the card; float64 on the CPU is the parity regime), every key
@@ -18,8 +23,7 @@ is a prng key bit-equal to the JAX package's for the same seed, and
 ``carry_state`` copies a JAX optimizer's key and fixed ensembles so both
 packages compute the same thing.  Nothing is compiled, so the JAX
 package's program cache has no counterpart; ``mesh`` (multi-device) is
-not ported yet, nor are Adam's persistent stream batches and
-per-iteration candidates (the next zoo slice).
+not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +48,10 @@ class BatchResult(NamedTuple):
     true_fid: torch.Tensor   # (K,) noiseless fidelity
     nfev: torch.Tensor       # (K,) objective calls (incl. multipliers)
     nit: torch.Tensor        # (K,) iterations
+    #: optional top-c candidates collected inside the batch (per-iteration
+    #: incumbents, qnewton.py:604-616/743-757 offer every iteration)
+    cand_x: Optional[torch.Tensor] = None     # (K, kc, d)
+    cand_fid: Optional[torch.Tensor] = None   # (K, kc)
 
 
 class ControlOptimizer:
@@ -54,6 +62,10 @@ class ControlOptimizer:
     default_batch = 128
     #: only LBFGS wires the Wasserstein training cost (qnewton.py:512)
     supports_wass_cost = False
+    #: True for optimizers whose "batch" is a persistent stream set (Adam)
+    #: rather than independent restarts: the run loop never caps, shrinks
+    #: or redraws their batch between dispatches
+    persistent_streams = False
 
     def __init__(self, nspin, in_spin, out_spin, bmin=-10, bmax=10,
                  max_time=30, repeats=1000000, fid_threshold=0.98, log=False,
@@ -285,7 +297,9 @@ class ControlOptimizer:
         reps_done = 0
         batch = self._batch_size()
         budget_mode = bool(self.run_until_told_to_stop
-                           and self.run_until_completion_its)
+                           and self.run_until_completion_its
+                           and not self.persistent_streams)
+        x0s_first = None   # persistent streams: init draws consumed once
 
         # data-independent cap on the batch shape from the fcall budget and
         # the nominal per-restart cost: every dispatch of the run has one
@@ -313,7 +327,15 @@ class ControlOptimizer:
                     est = max(1.0, funccalls / reps_done)
                 remaining = float(self.run_until_completion_its) - funccalls
                 k = min(k, max(1, int(np.ceil(remaining / est))))
-            x0s = self.init_points(k)
+            if self.persistent_streams and x0s_first is not None \
+                    and len(x0s_first) == k:
+                # persistent streams (Adam) ignore x0s after their first
+                # dispatch: one Sobol sequence, the start points and then
+                # the restart candidates only (qnewton.py:659-700)
+                x0s = x0s_first
+            else:
+                x0s = self.init_points(k)
+                x0s_first = x0s
             if k < k_sched:
                 # pad with copies of the last real start; the pad lanes'
                 # outputs are discarded
@@ -350,6 +372,11 @@ class ControlOptimizer:
             else:
                 if self.landscape_exploration:
                     top.offer_many(fids, xs)
+                    if res.cand_fid is not None:
+                        cf = res.cand_fid[:k].cpu().numpy().reshape(-1)
+                        cx = res.cand_x[:k].cpu().numpy().reshape(cf.size,
+                                                                  -1)
+                        top.offer_many(cf, cx)
                 i = int(fids.argmax())
                 prev = rr.record["best_fid"]
                 crit = (fids[i] >= self.fid_threshold if prev is None

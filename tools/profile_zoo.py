@@ -4,13 +4,15 @@ wall goes between the host and the device.
     python3 tools/profile_zoo.py [--pool 8192] [--table-dir DIR]
                                  [--routes-ab PAIRS]
 
-Run from the repository root.  For L-BFGS and Nelder-Mead in chip_smoke.py's
-zoo configuration (N=7, 0 -> 6, landscape exploration, 1024 lanes,
-float32): one warm-up ``_run_batch``, one unprofiled call for the wall, and
-one call under ``torch.profiler`` (CPU and CUDA activities).  For each it
-prints the rounds, trials and host syncs (``opt.stats``), the kernel
-launches the host made (``cudaLaunchKernel`` events), the device's busy
-time (the union of the device events' intervals), the idle share of the
+Run from the repository root.  For each zoo family (L-BFGS, NM, Adam, SNOB)
+in chip_smoke.py's zoo configuration (N=7, 0 -> 6, landscape exploration,
+float32; L-BFGS and NM with 1024 lanes; Adam's pool is its 64 streams, a
+call one 1000-step segment): one warm-up ``_run_batch``, one unprofiled
+call for the wall, and one call under ``torch.profiler`` (CPU and CUDA
+activities).  For each it prints the rounds, trials, steps and host syncs
+(``opt.stats``), the kernel launches the host made (``cudaLaunchKernel``
+events) in all and per trial, round or step, the device's busy time (the
+union of the device events' intervals), the idle share of the
 profiled and of the unprofiled wall, each zoo kernel's launches and mean
 time, and the host ops called most often.  ``--table-dir`` also writes
 each profile's ``key_averages()`` table there.  Prints nothing as a
@@ -68,6 +70,9 @@ def profile(cls, warm: int, timed: int, profiled: int, pool: int,
               landscape_exploration=True, save_topc=64, device="cuda",
               dtype=torch.float32)
 
+    if opt.persistent_streams:
+        pool = opt.default_batch
+
     def run(seed):
         x0s = torch.as_tensor(opt.init_points(pool), dtype=torch.float32,
                               device="cuda")
@@ -86,9 +91,13 @@ def profile(cls, warm: int, timed: int, profiled: int, pool: int,
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     launches = sum(e.name in LAUNCH_NAMES for e in events)
-    print(f"{cls.name}: N=7 pool {pool} lanes {opt.lane_width}; stats "
-          f"{opt.stats}; wall {wall:.4f} s unprofiled, {prof_wall:.4f} s "
-          f"profiled; host kernel launches {launches}")
+    unit = next(u for u in ("trials", "steps", "rounds") if u in opt.stats)
+    print(f"{cls.name}: N=7 pool {pool} lanes "
+          f"{getattr(opt, 'lane_width', pool)}; stats {opt.stats}; wall "
+          f"{wall:.4f} s unprofiled, {prof_wall:.4f} s profiled; host kernel "
+          f"launches {launches}, {launches / opt.stats[unit]:.1f} per "
+          f"{unit[:-1]}; unprofiled {wall / opt.stats[unit] * 1e3:.4f} ms "
+          f"per {unit[:-1]}")
     if not device:
         print(f"{cls.name}: the profiler saw no device event: device busy "
               f"time and idle share not measured")
@@ -170,7 +179,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_zoo.py needs a CUDA device")
-    from code_robchar_tpu_torch.models import LBFGS, NMPlus
+    from code_robchar_tpu_torch.models import SNOB, Adam, LBFGS, NMPlus
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -180,8 +189,10 @@ def main(argv=None) -> None:
         routes_ab(LBFGS, 5, 7, args.pool, args.routes_ab)
         routes_ab(NMPlus, 15, 16, args.pool, args.routes_ab)
         return
-    profile(LBFGS, 5, 7, 8, args.pool, args.table_dir)
-    profile(NMPlus, 15, 16, 17, args.pool, args.table_dir)
+    # the seeds of chip_smoke.py's zoo phases: warm-up, timed, profiled
+    for cls, seeds in ((LBFGS, (5, 7, 8)), (NMPlus, (15, 16, 17)),
+                       (Adam, (35, 36, 37)), (SNOB, (25, 26, 27))):
+        profile(cls, *seeds, args.pool, args.table_dir)
 
 
 if __name__ == "__main__":
