@@ -219,10 +219,56 @@ Phases:
     restarts ending > 1e-3 apart beside the CPU against itself with the
     starts moved one ulp, and the fidelities' two-sample KS < 0.12 (the
     zoo's gate).
-13. the kernels JSON line (all ten kernels: launches on their paths, the
+13. the single-point objectives and their callers (N=7, 0 -> 6, float32
+    on the card).  (a) Every single-point builder on 64 points of real
+    fidelity (biases in (-0.5, 0.5), times in (3, 7): fidelity ~0.28
+    median) with fixed keys, the kernels on the card against the plain
+    versions on the CPU on the same keys: make_infidelity noiseless,
+    ham_noisy, fid_noisy, adaptive, fixed ensemble (100 members) and
+    fixed + fid_noisy (fidelities within 3e-5, under shot noise equal;
+    the call counts equal), make_exact_gradient (fidelities within 3e-5,
+    gradients within 1e-4), make_fd_gradient under ham noise (eps 1e-3, a
+    float32-sized step; f0 and the probes' values within 3e-5, calls
+    equal) and make_wass_cost (30 reps, within 3e-5); each call moves its
+    routed kernel's count by one launch (the Wasserstein cost by one a
+    chunk), and the median of the held values (fidelity, largest |grad|,
+    1 - cost) must be at least 100 times its bar.  Then ngd's launch, the
+    gradient kernel at B=1 on one ham-noisy draw (same bars), and one ngd
+    step from the first of those points (fidelity and w within 3e-5 and
+    1e-4; a coordinate moves ~0.03).  (b) NMPlus.run_accelerated with 600
+    objective calls, noiseless and ham-noisy (sigma 0.05), from the
+    reference's start (a regular simplex around a uniform point) in the
+    box biases (-1, 1), times (0, 8), where float32 resolves the
+    landscape (in the default box (-10, 10) x (0, 30) a uniform point's
+    fidelity is ~2e-7): wall, iterations/s, restarts, launches and host
+    syncs an iteration, the best fidelity of the first simplex, of the
+    run (a recorder around make_infidelity keeps the least value on the
+    card) and of the last simplex (a restart can leave it anywhere): the
+    run's at least 3e-3 and, noiseless, above the first simplex's; the
+    lane-group amplitude kernel once an iteration, once the
+    first simplex and once a restart, nothing else.  In the default box,
+    from a warm start (a regular simplex around the best of 1024 uniform
+    points), 36 calls must raise the best fidelity with no restart.  Then
+    card against CPU at N=4 (8 streams, one regular simplex each on both
+    devices): over the first 40 calls 7 of 8 within 1e-3; whole runs of
+    300 calls apart beside the witness, the CPU against itself with the
+    simplex one ulp up.  (c) PPO
+    at bench.py's configuration with the Wasserstein value targets (N=7,
+    1024 agents, T=500, ham_noisy, rollout_sweeps 4, 30 bootstrap reps):
+    one warm-up and two timed epochs, env-steps/s, the epoch split by CUDA
+    events at the stage hook (the targets at "wass_targets"), the
+    one-thread amplitude kernel's launches (the true fidelities and the
+    targets' chunks of at most objectives.WASS_LANES Hamiltonians), the
+    rollout and bf16 critic kernels once an epoch, and the peak of
+    torch.cuda.max_memory_allocated; 4096 of the last epoch's targets
+    against the CPU plain version from the same keys within 3e-5.  (d) ngd
+    for 200 steps (the lane-group gradient kernel once a step, B=1) and
+    one wass_cost: walls and launches.
+14. the kernels JSON line (all ten kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
-    events (the four zoo kernels' launches on the paths of phases 5, 8 and
-    12, timed at the batch of their path: 9216 and
+    events (the four zoo kernels' launches on the paths of phases 5, 8, 12
+    and 13, the rollout and bf16 critic kernels' on phases 8 and 13, timed
+    at the batch of their path: 9216 and
     1024 for the lane-group ones, 131072 for the one-thread gradient
     kernel, the PPO epoch's 512,000 for the one-thread amplitude kernel),
     bound_ms from this run's shapes and the hand counts of
@@ -239,6 +285,7 @@ Phases:
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2134,6 +2181,475 @@ def phase_adam_snob(worst):
     return launches, out
 
 
+#: the single-point phase: points a builder is held on, objective calls of
+#: the accelerated NM's rate runs, the PPO epoch's bootstrap reps and the
+#: targets held against the CPU, ngd's steps
+SP_POINTS = 64
+SP_NM_CALLS = 600
+#: objective calls of the whole runs of the N=4 card-vs-CPU hold (~75
+#: iterations; its CPU runs lead the phase's time)
+SP_WHOLE_CALLS = 300
+SP_WASS_REPS = 30
+SP_WASS_HELD = 4096
+SP_NGD_STEPS = 200
+#: the box of run_accelerated's rate runs at N=7 (the constructor's bmin =
+#: -SP_NM_BOX, bmax and max_time): a uniform point there has a transfer
+#: fidelity of ~0.07 (median), which float32 resolves; in the default box
+#: (-10, 10) x (0, 30) it has ~2e-7 and the landscape is flat in float32
+SP_NM_BOX, SP_NM_TIME = 1.0, 8.0
+#: objective calls of the warm-start run in the default box: its first
+#: simplex takes 8, so at most 28 iterations follow, fewer than the 30
+#: stagnant ones a restart needs
+SP_WARM_CALLS = 36
+
+
+def _sp_points(k):
+    """k controllers at N=7 with a transfer fidelity float32 resolves:
+    biases in (-0.5, 0.5), times in (3, 7) (fidelity ~0.28 median, ~2e-3
+    least, noiseless), float32 on the CPU."""
+    rng = np.random.default_rng(40)
+    xs = np.column_stack([rng.uniform(-0.5, 0.5, (k, 7)),
+                          rng.uniform(3, 7, k)])
+    return torch.as_tensor(xs, dtype=torch.float32)
+
+
+def _resolved(label, values, bar):
+    """The median of |values|, which must be at least 100 times the bar
+    they are held at: a hold of values near 0 (or of 1 - values near 1 in
+    float32) cannot tell a wrong kernel from a right one."""
+    med = float(values.abs().median())
+    if not med >= 100 * bar:
+        raise RuntimeError(f"{label}: held values of median {med:.3e}, "
+                           f"less than 100 x the bar {bar:g}")
+    return med
+
+
+def _sp_specs(device):
+    """The single-point objective specs of every regime at N=7, 0 -> 6
+    (noise 0.05, draws 10, adp_tol 0.05; the fixed ensemble of 100 members
+    under key(4)), on ``device``, float32."""
+    from code_robchar_tpu_torch.models import objectives
+    from code_robchar_tpu_torch.ops import chain, noise, prng
+
+    h0 = chain.xx_hamiltonian_real(7, device=device)
+    fixed, _ = noise.fixed_hamiltonian_ensemble(prng.key(4), h0, 0.05,
+                                                train_size=100, test_size=1)
+    base = dict(h0=h0, in_spin=0, out_spin=6, noise=0.05,
+                fid_noisy=False, ham_noisy=False, draws=10, adaptive=False,
+                adp_tol=0.05, fixed_hams=None, mul_fac=1)
+    regimes = {"noiseless": {}, "ham_noisy": dict(ham_noisy=True),
+               "fid_noisy": dict(fid_noisy=True),
+               "adaptive": dict(fid_noisy=True, adaptive=True),
+               "fixed": dict(fixed_hams=fixed),
+               "fixed_fid_noisy": dict(fixed_hams=fixed, fid_noisy=True)}
+    return {k: objectives.ObjectiveSpec(**dict(base, **v))
+            for k, v in regimes.items()}
+
+
+def _wass_chunks(k, reps):
+    """(launches, Hamiltonians of the largest) of make_wass_cost on k
+    controllers: chunks of WASS_LANES // reps controllers."""
+    from code_robchar_tpu_torch.models import objectives
+
+    per = max(1, objectives.WASS_LANES // reps)
+    return -(-k // per), min(k, per) * reps
+
+
+def _hold_single_point_builders():
+    """(a) every single-point builder at N=7 on SP_POINTS points of real
+    fidelity (_sp_points) with fixed keys, the card's kernels against the
+    CPU plain versions on the same keys; each call's launches against the
+    routed kernel; then one ngd step (the gradient kernel at B=1)."""
+    from code_robchar_tpu_torch.models import NMPlus, objectives
+    from code_robchar_tpu_torch.ops import cuda_jacobi, noise, prng
+
+    n, k = 7, SP_POINTS
+    x_cpu = _sp_points(k)
+    x_card = x_cpu.cuda()
+    keys = prng.split(prng.key(41), k)
+    card, cpu = _sp_specs("cuda"), _sp_specs("cpu")
+
+    def counted(label, fn, want):
+        _reset_zoo_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        _expect_counts(f"single-point {label}", _zoo_counts(), want)
+        return out
+
+    for name in card:
+        r = 100 if name.startswith("fixed") else 1
+        (f_card, c_card) = counted(
+            f"make_infidelity {name}",
+            lambda: objectives.make_infidelity(card[name])(x_card, keys),
+            [(cuda_jacobi.amp_route(n, k * r), 1)])
+        f_cpu, c_cpu = objectives.make_infidelity(cpu[name])(x_cpu, keys)
+        fid_card, fid_cpu = 1 - f_card.cpu(), 1 - f_cpu
+        med = _resolved(f"make_infidelity {name}", fid_cpu, TOL_KERNEL)
+        err = float((fid_card - fid_cpu).abs().max())
+        # under shot noise the counts, and so the values, must be equal
+        shot = cpu[name].fid_noisy
+        ok = err <= TOL_KERNEL and (err == 0.0 or not shot) and \
+            bool(torch.equal(c_card.cpu(), c_cpu)) and \
+            bool(torch.isfinite(f_card).all())
+        print(f"single-point make_infidelity {name}: N=7, {k} points"
+              f"{f' x {r} members' if r > 1 else ''} (fidelity median "
+              f"{med:.4f}), card vs cpu max |dfid| {err:.3e}"
+              f"{' (shot noise: must be 0)' if shot else ''}, calls equal "
+              f"{bool(torch.equal(c_card.cpu(), c_cpu))} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"make_infidelity {name}: card and CPU "
+                               f"disagree")
+
+    e_card, g_card = counted(
+        "make_exact_gradient",
+        lambda: objectives.make_exact_gradient(card["noiseless"])(x_card),
+        [(cuda_jacobi.grad_route(n, k), 1)])
+    e_cpu, g_cpu = objectives.make_exact_gradient(cpu["noiseless"])(x_cpu)
+    g_med = _resolved("make_exact_gradient", g_cpu.abs().amax(1),
+                      TOL_GRAD_ORACLE)
+    e_err = float(((1 - e_card.cpu()) - (1 - e_cpu)).abs().max())
+    g_err = float((g_card.cpu() - g_cpu).abs().max())
+    # float32 probes need a float32-sized step: eps = 1e-3
+    eps = 1e-3
+    f0_card, gfd_card, cfd_card = counted(
+        "make_fd_gradient ham_noisy",
+        lambda: objectives.make_fd_gradient(objectives.make_infidelity(
+            card["ham_noisy"]), n + 1, eps)(x_card, keys),
+        [(cuda_jacobi.amp_route(n, k * (n + 2)), 1)])
+    f0_cpu, gfd_cpu, cfd_cpu = objectives.make_fd_gradient(
+        objectives.make_infidelity(cpu["ham_noisy"]), n + 1, eps)(x_cpu, keys)
+    fd_err = max(float((f0_card.cpu() - f0_cpu).abs().max()),
+                 float((gfd_card.cpu() - gfd_cpu).abs().max()) * eps / 2)
+    w_card = counted(
+        "make_wass_cost",
+        lambda: objectives.make_wass_cost(card["ham_noisy"], SP_WASS_REPS)(
+            x_card, keys),
+        [(cuda_jacobi.amp_route(n, k * SP_WASS_REPS),
+          _wass_chunks(k, SP_WASS_REPS)[0])])
+    w_cpu = objectives.make_wass_cost(cpu["ham_noisy"], SP_WASS_REPS)(
+        x_cpu, keys)
+    w_med = _resolved("make_wass_cost", 1 - w_cpu, TOL_KERNEL)
+    w_err = float((w_card.cpu() - w_cpu).abs().max())
+    ok = e_err <= TOL_KERNEL and g_err <= TOL_GRAD_ORACLE and \
+        fd_err <= TOL_KERNEL and w_err <= TOL_KERNEL and \
+        bool(torch.equal(cfd_card.cpu(), cfd_cpu)) and \
+        bool(torch.isfinite(g_card).all() & torch.isfinite(w_card).all())
+    print(f"single-point make_exact_gradient: |dfid| {e_err:.3e}, |dgrad| "
+          f"{g_err:.3e} (bar {TOL_GRAD_ORACLE:g}; median of the largest "
+          f"|grad| {g_med:.4f}); make_fd_gradient ham_noisy (eps {eps:g}): "
+          f"f0 and the probes' values within {fd_err:.3e}, calls equal; "
+          f"make_wass_cost ({SP_WASS_REPS} reps): |dcost| {w_err:.3e} "
+          f"(median 1 - cost {w_med:.4f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("a single-point builder disagrees card vs CPU")
+
+    # ngd's step: the gradient kernel at B=1 on one ham-noisy draw, then
+    # one step of ngd from a point of real fidelity, card against CPU
+    h0 = card["noiseless"].h0
+    zr, _ = noise.structured_perturbation_parts(prng.key(42), n, 0.05,
+                                                complex_offdiag=False)
+    err1_card, g1_card = counted(
+        "gradient kernel at B=1",
+        lambda: cuda_jacobi.infidelity_and_gradient_sym(
+            h0 + zr.cuda(), x_card[:1], 0, 6),
+        [(cuda_jacobi.grad_route(n, 1), 1)])
+    err1_cpu, g1_cpu = cuda_jacobi.infidelity_and_gradient_sym(
+        h0.cpu() + zr, x_cpu[:1], 0, 6)
+    _resolved("gradient kernel at B=1", g1_cpu.abs().amax(1),
+              TOL_GRAD_ORACLE)
+    d_err1 = float((err1_card.cpu() - err1_cpu).abs().max())
+    d_g1 = float((g1_card.cpu() - g1_cpu).abs().max())
+    walk = {}
+    for dev in ("cuda", "cpu"):
+        opt = NMPlus(7, 0, 6, testing=True, seed=5, noise=0.05, device=dev,
+                     dtype=torch.float32)
+        opt.init_points = lambda kk: x_cpu[:kk].numpy()
+        walk[dev] = opt.ngd(1)
+    d_fid = abs(walk["cuda"][1] - walk["cpu"][1])
+    d_w = float(np.abs(walk["cuda"][0] - walk["cpu"][0]).max())
+    moved = float(np.median(np.abs(walk["cpu"][0] - x_cpu[0].numpy())))
+    ok = d_err1 <= TOL_KERNEL and d_g1 <= TOL_GRAD_ORACLE and \
+        d_fid <= TOL_KERNEL and d_w <= TOL_GRAD_ORACLE and \
+        walk["cpu"][1] >= 100 * TOL_KERNEL and moved >= 100 * TOL_GRAD_ORACLE
+    print(f"single-point gradient kernel at B=1 (ngd's launch): |derr| "
+          f"{d_err1:.3e}, |dgrad| {d_g1:.3e}; ngd one step from a point "
+          f"of fidelity {walk['cpu'][1]:.4f}: |dfid| {d_fid:.3e}, |dw| "
+          f"{d_w:.3e} (bar {TOL_GRAD_ORACLE:g}; a coordinate moved "
+          f"{moved:.4f} (median)) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("ngd's step disagrees card vs CPU")
+
+
+def _sp_nm_card_vs_cpu():
+    """run_accelerated at N=4, float32, card against CPU on 8 streams (seeds
+    0..7, the same regular simplex on both): over the first iterations
+    (40 objective calls) 7 of 8 must end within 1e-3; over whole runs
+    (SP_WHOLE_CALLS calls) the streams ending apart are printed beside the
+    witness, the CPU against itself with the simplex moved one ulp."""
+    from code_robchar_tpu_torch.models import NMPlus, nmplus
+
+    def run(device, seed, calls, nudge=False):
+        ref = NMPlus(4, 0, 2, testing=True, seed=seed, device="cpu")
+        key = ref.next_key()
+        x0 = torch.as_tensor(ref.init_points(1)[0])
+        simplex = nmplus.regular_simplex(x0, ref._lower, ref._upper, key)
+        if nudge:
+            simplex = torch.nextafter(simplex,
+                                      torch.full_like(simplex, math.inf))
+        opt = NMPlus(4, 0, 2, testing=True, seed=seed, device=device)
+        f, x = opt.run_accelerated(calls, simplex=simplex.to(device))
+        return f, x
+
+    def apart(a, b):
+        return sum(int(np.abs(x - y).max() > 1e-3) for (_, x), (_, y)
+                   in zip(a, b))
+
+    seeds = range(8)
+    first = [[run(dev, s, 40) for s in seeds] for dev in ("cuda", "cpu")]
+    close = 8 - apart(*first)
+    whole = [[run(dev, s, SP_WHOLE_CALLS) for s in seeds]
+             for dev in ("cuda", "cpu")]
+    witness = apart(whole[1], [run("cpu", s, SP_WHOLE_CALLS, nudge=True)
+                               for s in seeds])
+    dfid = max(abs(a[0] - b[0]) for a, b in zip(*whole))
+    print(f"run_accelerated card vs cpu (N=4, 8 streams, f32): first 40 "
+          f"calls {close}/8 within 1e-3 (at least 7); whole runs of "
+          f"{SP_WHOLE_CALLS} calls apart {apart(*whole)}/8, the CPU vs itself "
+          f"with the simplex one ulp up {witness}/8; max |dinfid| "
+          f"{dfid:.3e}")
+    if close < 7:
+        raise RuntimeError("run_accelerated: card and CPU disagree")
+
+
+def phase_single_point():
+    """(a) the single-point builders card vs CPU; (b) run_accelerated at
+    N=7; (c) the PPO epoch with the Wasserstein value targets at bench.py's
+    configuration; (d) ngd and wass_cost.  Returns the launches of the
+    paths (b)-(d) by kernel and the readings."""
+    from code_robchar_tpu_torch.models import NMPlus, PPO_en, nmplus
+    from code_robchar_tpu_torch.models import objectives
+    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, prng, rollout
+
+    clock = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        print(f"phase_single_point {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    _hold_single_point_builders()
+    part("(a) builders card vs cpu")
+    launches = dict.fromkeys(AMP_KERNELS + GRAD_KERNELS, 0)
+    launches.update(rollout=0, critic_bf16=0)
+    out = {}
+
+    def add(used):
+        for k, v in used.items():
+            launches[k] += v
+
+    # (b) the accelerated single-stream NM.  The rate runs take the
+    # reference's start (a regular simplex around a uniform point) in the
+    # box SP_NM_BOX x SP_NM_TIME, where float32 resolves the landscape
+    # everywhere.  The stagnation restarts (every ~30 stagnant iterations,
+    # the reference's counter) may leave the last simplex anywhere, even at
+    # t ~ 0, so a recorder keeps the least objective value on the card (no
+    # sync): the first simplex's and the run's
+    make = objectives.make_infidelity
+    seen = {}
+
+    def recording(spec):
+        infid = make(spec)
+
+        def record(xs, keys):
+            f, calls = infid(xs, keys)
+            low = f.min()
+            seen.setdefault("first", low)
+            seen["least"] = torch.minimum(seen.get("least", low), low)
+            return f, calls
+        return record
+
+    for label, kw in (("noiseless", {}), ("ham_noisy", dict(ham_noisy=True,
+                                                            noise=0.05))):
+        opt = NMPlus(7, 0, 6, testing=True, seed=3, bmin=-SP_NM_BOX,
+                     bmax=SP_NM_BOX, max_time=SP_NM_TIME, device="cuda",
+                     dtype=torch.float32, **kw)
+        opt.run_accelerated(60)          # warm-up
+        seen.clear()
+        objectives.make_infidelity = recording
+        _reset_zoo_counts()
+        try:
+            t0 = time.perf_counter()
+            f, x = opt.run_accelerated(SP_NM_CALLS)
+            wall = time.perf_counter() - t0
+        finally:
+            objectives.make_infidelity = make
+        used = _zoo_counts()
+        st = opt.stats
+        it = st["iterations"]
+        first, best = (1 - float(seen[k]) for k in ("first", "least"))
+        print(f"run_accelerated {label}: N=7, box +-{SP_NM_BOX:g} x "
+              f"(0, {SP_NM_TIME:g}), {SP_NM_CALLS} objective calls: "
+              f"{wall:.3f} s, {it} iterations, {it / wall:.1f} "
+              f"iterations/s, {st['restarts']} restarts, launches "
+              f"{st['launches'] / it:.3f} and host syncs "
+              f"{st['syncs'] / it:.3f} an iteration; best fidelity: first "
+              f"simplex {first:.4g}, the run {best:.4g}, the last simplex "
+              f"{1 - f:.4g}")
+        _expect_counts(f"run_accelerated {label}", used, [
+            (cuda_jacobi.amp_route(7, 13), st["launches"])])
+        progress = best > first or label != "noiseless"
+        if not (np.isfinite(x).all() and 0.0 <= 1 - f <= 1 + 1e-5 and
+                best >= 100 * TOL_KERNEL and progress):
+            raise RuntimeError("run_accelerated: the search made no "
+                               "progress that float32 resolves")
+        add(used)
+        out[f"nm_{label}_it_s"] = it / wall
+    # the default box (-10, 10) x (0, 30), flat in float32 around a uniform
+    # point: from a warm start (a regular simplex around the best of 1024
+    # uniform points) the noiseless search must improve on its start
+    # before any restart can throw the start away
+    opt = NMPlus(7, 0, 6, testing=True, seed=3, device="cuda",
+                 dtype=torch.float32)
+    xs = torch.as_tensor(opt.init_points(1024), dtype=torch.float32,
+                         device="cuda")
+    fids = objectives.fidelity_batch(opt.HH, xs, 0, 6)
+    warm = nmplus.regular_simplex(xs[int(torch.argmax(fids))], opt._lower,
+                                  opt._upper, prng.key(44))
+    start_fid = float(objectives.fidelity_batch(opt.HH, warm, 0, 6).max())
+    _reset_zoo_counts()
+    f, x = opt.run_accelerated(SP_WARM_CALLS, simplex=warm)
+    used = _zoo_counts()
+    st = opt.stats
+    print(f"run_accelerated noiseless, default box, warm start: "
+          f"{SP_WARM_CALLS} objective calls, {st['iterations']} iterations, "
+          f"{st['restarts']} restarts; best fidelity {start_fid:.4f} -> "
+          f"{1 - f:.4g}")
+    _expect_counts("run_accelerated warm start", used, [
+        (cuda_jacobi.amp_route(7, 13), st["launches"])])
+    if st["restarts"] or not 1 - f > start_fid:
+        raise RuntimeError("run_accelerated made no progress from its "
+                           "warm start")
+    add(used)
+    part("(b) run_accelerated")
+    _sp_nm_card_vs_cpu()
+    part("(b) run_accelerated card vs cpu")
+
+    # (c) PPO with the Wasserstein value targets, bench.py's configuration
+    a_cnt, t_len = PPO_AGENTS, PPO_STEPS
+    ppo = PPO_en(7, 0, 6, testing=True, fid_threshold=0.0, ham_noisy=True,
+                 num_agents=a_cnt, rollout_sweeps=4,
+                 use_wass_value_targets=True,
+                 wass_bootstrap_reps=SP_WASS_REPS, device="cuda",
+                 dtype=torch.float32)
+    epoch_fn = ppo._build_epoch(t_len, 0.2, 3e-3, 1e-3, 1000, 200, 200, 0.01)
+    st = ppo._init_agent(prng.split(prng.key(0), a_cnt))
+    st, _ = epoch_fn(st)                 # warm-up
+    marks, held = [], {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    make = objectives.make_wass_cost
+
+    def recording(spec, reps):
+        cost = make(spec, reps)
+
+        def record(xs, keys):
+            c = cost(xs, keys)
+            held.update(xs=xs[:SP_WASS_HELD].clone(),
+                        keys=keys[:SP_WASS_HELD].clone(),
+                        cost=c[:SP_WASS_HELD].clone(), spec=spec)
+            return c
+        return record
+
+    ppo.stage_hook = mark
+    objectives.make_wass_cost = recording
+    rollout.LAUNCHES_REG = rollout.LAUNCHES = 0
+    critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
+    _reset_zoo_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        start = time.perf_counter()
+        for _ in range(2):
+            st, res = epoch_fn(st)
+            float(res.rewards.sum())
+        wall = time.perf_counter() - start
+    finally:
+        objectives.make_wass_cost = make
+    used = _zoo_counts()
+    used.update(rollout=rollout.LAUNCHES_REG, critic_bf16=critic.LAUNCHES_BF16)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    split = {}
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        if name != "start":
+            split[name] = split.get(name, 0.0) + a.elapsed_time(b) / 2
+    rate = a_cnt * t_len * 2 / wall
+    hams = a_cnt * t_len * SP_WASS_REPS
+    chunks, chunk = _wass_chunks(a_cnt * t_len, SP_WASS_REPS)
+    print(f"ppo wass path: N=7 {a_cnt} agents x {t_len} steps, "
+          f"{SP_WASS_REPS} bootstrap reps ({hams} Hamiltonians an epoch in "
+          f"{chunks} launches of at most {chunk}): 2 epochs {wall:.4f} s, "
+          f"{rate:.1f} env-steps/s; per epoch (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f"; launches over 2 epochs {used}; peak memory "
+          f"{peak:.3f} GiB (torch.cuda.max_memory_allocated)")
+    # per epoch: the true fidelities and the targets' chunks on the
+    # one-thread amplitude kernel, the rollout and the bf16 critic once
+    _expect_counts("ppo wass path", {k: used[k] for k in _zoo_counts()}, [
+        (cuda_jacobi.amp_route(7, a_cnt * t_len), 2),
+        (cuda_jacobi.amp_route(7, chunk), 2 * chunks)])
+    if used["rollout"] != 2 or used["critic_bf16"] != 2:
+        raise RuntimeError("the Wasserstein PPO epoch missed the rollout or "
+                           "critic kernel")
+    add(used)
+    out.update(ppo_wass_rate=rate, wass_ms=split.get("wass_targets"),
+               peak_gib=peak)
+    cpu_cost = make(held["spec"]._replace(h0=held["spec"].h0.cpu()),
+                    SP_WASS_REPS)(held["xs"].cpu(), held["keys"].cpu())
+    err = float((held["cost"].cpu() - cpu_cost).abs().max())
+    tgt = -held["cost"]
+    print(f"ppo wass targets: {SP_WASS_HELD} of the last epoch's targets "
+          f"against the CPU plain version from the same keys: max |d| "
+          f"{err:.3e} (bar {TOL_KERNEL:g}); targets in "
+          f"[{float(tgt.min()):.4f}, {float(tgt.max()):.4f}]")
+    if err > TOL_KERNEL or not bool(torch.isfinite(held["cost"]).all()) or \
+            float(held["cost"].min()) < 0.0:
+        raise RuntimeError("the Wasserstein targets disagree card vs CPU")
+    part("(c) ppo wass path and hold")
+
+    # (d) ngd and wass_cost
+    opt = NMPlus(7, 0, 6, testing=True, seed=5, noise=0.05, device="cuda",
+                 dtype=torch.float32)
+    _reset_zoo_counts()
+    start = time.perf_counter()
+    w, fid = opt.ngd(SP_NGD_STEPS)
+    ngd_wall = time.perf_counter() - start
+    used_ngd = _zoo_counts()
+    start = time.perf_counter()
+    cost = opt.wass_cost(w, SP_WASS_REPS)
+    wass_wall = time.perf_counter() - start
+    used = _zoo_counts()
+    print(f"ngd: N=7, {SP_NGD_STEPS} steps {ngd_wall:.3f} s "
+          f"({SP_NGD_STEPS / ngd_wall:.1f} steps/s), best fidelity "
+          f"{fid:.6f}; wass_cost ({SP_WASS_REPS} reps) {wass_wall * 1e3:.2f} "
+          f"ms, cost {cost:.6f}; launches {used}")
+    _expect_counts("ngd", used_ngd, [(cuda_jacobi.grad_route(7, 1),
+                                      SP_NGD_STEPS)])
+    _expect_counts("ngd + wass_cost", used, [
+        (cuda_jacobi.grad_route(7, 1), SP_NGD_STEPS),
+        (cuda_jacobi.amp_route(7, SP_WASS_REPS), 1)])
+    if not (np.isfinite(w).all() and 0.0 <= fid <= 1 + 1e-5 and
+            0.0 <= cost <= 1.0):
+        raise RuntimeError("ngd or wass_cost: bad result")
+    add(used)
+    part("(d) ngd, wass_cost")
+    return launches, out
+
+
 def _run(phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -2156,6 +2672,7 @@ def main():
     probe = _run(phase_probes)
     noisy = _run(phase_shot_noise)
     adam_snob_launches, adam_snob = _run(phase_adam_snob, zoo_err)
+    sp_launches, sp = _run(phase_single_point)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -2178,8 +2695,11 @@ def main():
     # SNOB pool's rounds; error and times from the PPO path's own batch
     # (phase 8)
     zoo_launches["sym_jacobi_amp"] = ppo_launches["amp"]
-    for name, n_launch in adam_snob_launches.items():
-        zoo_launches[name] += n_launch
+    for launched in (adam_snob_launches, sp_launches):
+        for name in zoo_launches:
+            zoo_launches[name] += launched[name]
+    for name in ("rollout", "critic_bf16"):
+        ppo_launches[name] += sp_launches[name]
     zoo_err["sym_jacobi_amp"] = max(zoo_err["sym_jacobi_amp"], amp_err)
     kernels = [
         entry("herm_jacobi_fidelity",
@@ -2215,7 +2735,12 @@ def main():
           f"{adam_snob['adam_steps_s']:.1f} steps/s, ham_noisy "
           f"{adam_snob['adam_noisy_steps_s']:.1f}; SNOB "
           f"{adam_snob['snob_restarts_s']:.1f} restarts/s (N=7, pool "
-          f"{ZOO_POOL}); card vs cpu KS {adam_snob['ks']}; card {smi}")
+          f"{ZOO_POOL}); card vs cpu KS {adam_snob['ks']}; run_accelerated "
+          f"(N=7, box +-{SP_NM_BOX:g} x (0, {SP_NM_TIME:g})) "
+          f"{sp['nm_noiseless_it_s']:.1f} iterations/s, ham_noisy "
+          f"{sp['nm_ham_noisy_it_s']:.1f}; PPO with Wasserstein targets "
+          f"{sp['ppo_wass_rate']:.1f} env-steps/s (targets {sp['wass_ms']:.2f} "
+          f"ms an epoch, peak {sp['peak_gib']:.3f} GiB); card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

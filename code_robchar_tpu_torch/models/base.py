@@ -24,6 +24,10 @@ is a prng key bit-equal to the JAX package's for the same seed, and
 packages compute the same thing.  Nothing is compiled, so the JAX
 package's program cache has no counterpart; ``mesh`` (multi-device) is
 not ported yet.
+
+The single-controller helpers of the reference API (``ngd``,
+``wass_cost``, ``overlap_ss``, the perturbation draws and the sampling
+helpers) follow the JAX package's key use: one ``next_key()`` a call.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import numpy as np
 import torch
 
 from code_robchar_tpu_torch import config
-from code_robchar_tpu_torch.models import objectives
+from code_robchar_tpu_torch.models import objectives, optim
 from code_robchar_tpu_torch.ops import chain, cuda_jacobi, noise as noise_ops
-from code_robchar_tpu_torch.ops import prng, sobol
+from code_robchar_tpu_torch.ops import prng, realform, sobol
 from code_robchar_tpu_torch.utils.record import RunRecord, TopControllers
 from code_robchar_tpu_torch.utils.timeout import Deadline
 
@@ -235,6 +239,88 @@ class ControlOptimizer:
         err, grad = cuda_jacobi.infidelity_and_gradient_sym(
             self.HH, self._controllers(x), self.In, self.Out)
         return float(err[0]), grad[0].cpu().numpy()
+
+    # ------------------------------------------------- reference-API shims
+
+    def sys_hamiltonian(self) -> torch.Tensor:
+        return self.HH
+
+    def controls(self) -> torch.Tensor:
+        """The diagonal control projectors (qnewton.py:153-159), (n, n, n)
+        in the drift's dtype."""
+        return chain.control_projectors(self.Nspin, dtype=self.dtype,
+                                        device=self.device)
+
+    @staticmethod
+    def whole_sphere_sampling(size, dim) -> np.ndarray:
+        """Box-Muller whole-ball sampling (qnewton.py:325-338), from numpy's
+        global generator as the reference draws it."""
+        nrvs = np.random.normal(0, 1, size=(size, dim))
+        l2 = np.sqrt(np.sum(nrvs * nrvs, axis=1))
+        r = np.random.random(size=size) / dim / l2
+        return r[:, None] * nrvs
+
+    def directional_perturbation(self) -> torch.Tensor:
+        """Single-Hermitian-pair perturbation (qnewton.py:340-364), complex
+        (n, n) on the optimizer's device."""
+        return noise_ops.directional_perturbation(
+            self.next_key().to(self.device), self.Nspin, self.noise,
+            dtype=config.complex_dtype(self.dtype))
+
+    def structured_perturabation(self) -> torch.Tensor:  # reference spelling
+        zr, _ = noise_ops.structured_perturbation_parts(
+            self.next_key().to(self.device), self.Nspin, self.noise,
+            complex_offdiag=False, dtype=self.dtype)
+        return zr
+
+    def randHset_constructor(self, train_size=1000, test_size=10000):
+        """Fixed train and test ensembles under the seed contract key(4)
+        (qnewton.py:122-137)."""
+        return noise_ops.fixed_hamiltonian_ensemble(
+            prng.key(4), self.HH, self.noise, train_size=train_size,
+            test_size=test_size)
+
+    def overlap_ss(self, x) -> float:
+        """Steady-state overlap (qnewton.py:214-224) on the real drift:
+        sum_k V[in,k]^2 V[out,k]^2 of H0 + diag(x[:n]), from the cyclic
+        Jacobi eigenvectors in torch ops on the optimizer's device (the JAX
+        package runs it in XLA, outside its Pallas kernels: no kernel
+        computes whole eigenvector rows)."""
+        x = self._controllers(x)[0]
+        h = self.HH + torch.eye(self.Nspin, dtype=self.dtype,
+                                device=self.device) * x[:self.Nspin]
+        _, v = realform.jacobi_eigh_sym(h)
+        return float(torch.sum((v[self.In, :] ** 2) * (v[self.Out, :] ** 2)))
+
+    def wass_cost(self, x, bootstrap_reps=5) -> float:
+        """The Wasserstein robustness cost of one controller under the
+        current noise (qnewton.py:447-455), one ``next_key()``."""
+        cost = objectives.make_wass_cost(self.spec(), bootstrap_reps)
+        return float(cost(self._controllers(x)[0], self.next_key()))
+
+    def ngd(self, funcalls: int, lr: float = 1e-2):
+        """RMSprop noisy gradient descent (qnewton.py:226-253, unused by
+        the reference pipeline): ``funcalls`` steps of
+        ``optim.rmsprop_update`` from one init point, each on the exact
+        gradient under a fresh real structured draw (the keys
+        ``split(next_key(), funcalls)``, drawn in one batch), through the
+        gradient kernel at B = 1 on the card.  Returns (w, 1 - min(errs)),
+        one host sync at the end."""
+        w = torch.as_tensor(self.init_points(1)[0], dtype=self.dtype,
+                            device=self.device)
+        nu = torch.zeros_like(w)
+        keys = prng.split(self.next_key(), funcalls).to(self.device)
+        zr, _ = noise_ops.structured_perturbation_parts(
+            keys, self.Nspin, self.noise, complex_offdiag=False,
+            dtype=self.dtype)
+        hams = self.HH + zr
+        errs = []
+        for h in hams:
+            err, grad = cuda_jacobi.infidelity_and_gradient_sym(
+                h, w[None], self.In, self.Out)
+            w, nu = optim.rmsprop_update(grad[0], nu, w, lr)
+            errs.append(err)
+        return w.cpu().numpy(), 1.0 - float(torch.cat(errs).min())
 
     # --------------------------------------------------------- init points
 

@@ -33,7 +33,10 @@ Faithful semantics (quirks preserved deliberately):
   ``ks`` of ``kh, ks = split(key)``.
 
 Port specifics: dtype and device are explicit, and keys are the port's
-threefry keys (the same draws as the JAX package for the same key).
+threefry keys (the same draws as the JAX package for the same key).  On
+the card every fidelity goes through the amplitude kernel
+(ops/cuda_jacobi, round-robin pivot order); on the CPU through its plain
+version in the JAX package's cyclic order.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ import numpy as np
 import torch
 
 from code_robchar_tpu_torch import config
-from code_robchar_tpu_torch.ops import chain, noise as noise_ops, prng
-from code_robchar_tpu_torch.ops import realform
+from code_robchar_tpu_torch.ops import chain, cuda_jacobi
+from code_robchar_tpu_torch.ops import noise as noise_ops, prng, realform
 from code_robchar_tpu_torch.ops.rollout import (
     normalise_time as _normalise_time, wrap_action as _wrap_action)
 
@@ -80,15 +83,29 @@ def env_reset(cfg: EnvConfig, dtype: torch.dtype = torch.float32,
     return state, obs
 
 
+def _transfer_amp(a: torch.Tensor, t: torch.Tensor, in_spin: int,
+                  out_spin: int):
+    """(phr, phi) of lanes matrices a (n, n, B) and times t (B,): on the
+    card the amplitude kernel (round-robin order), on the CPU the plain
+    version in the cyclic order of the JAX package's host-side physics."""
+    # the cyclic order on the CPU keeps the shot-noise reward within one ulp
+    # of the JAX package's (tests/test_torch_env.py,
+    # test_shot_noise_raises_naming_its_item, rel=3e-16); the round-robin
+    # plain version would agree only to ~1e-10
+    if a.device.type == "cpu":
+        return realform.transfer_amp_sym_lanes(a, t, in_spin, out_spin,
+                                               order="cyclic")
+    return cuda_jacobi.transfer_amp_sym(a, t.contiguous(), in_spin, out_spin)
+
+
 def _fidelity_sym(h: torch.Tensor, t: torch.Tensor, in_spin: int,
                   out_spin: int) -> torch.Tensor:
     """|<out| exp(-i t H) |in>|^2 for real symmetric h (..., n, n) and t
-    (...), cyclic order (the JAX package's host-side physics)."""
+    (...)."""
     lead = h.shape[:-2]
-    fid = realform.fidelity_sym_lanes(realform._to_lanes(h),
-                                      t.expand(lead).reshape(-1), in_spin,
-                                      out_spin, order="cyclic")
-    return fid.reshape(lead)
+    phr, phi = _transfer_amp(realform._to_lanes(h),
+                             t.expand(lead).reshape(-1), in_spin, out_spin)
+    return (phr * phr + phi * phi).reshape(lead)
 
 
 def env_step(cfg: EnvConfig, h0: torch.Tensor, state: EnvState,
@@ -118,9 +135,8 @@ def env_step(cfg: EnvConfig, h0: torch.Tensor, state: EnvState,
         # the per-member transfer amplitudes
         fixed_r = fixed_hams.real if fixed_hams.is_complex() else fixed_hams
         hs = realform._to_lanes(fixed_r.to(h0.dtype) + eye * action)
-        phr, phi = realform.transfer_amp_sym_lanes(
-            hs, t.to(h0.dtype).expand(hs.shape[-1]), cfg.in_spin,
-            cfg.out_spin, order="cyclic")
+        phr, phi = _transfer_amp(hs, t.to(h0.dtype).expand(hs.shape[-1]),
+                                 cfg.in_spin, cfg.out_spin)
         amp_r, amp_i = phr.mean(), phi.mean()
         fid = amp_r * amp_r + amp_i * amp_i
     else:

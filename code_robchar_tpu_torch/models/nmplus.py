@@ -13,15 +13,21 @@ draws, so nfev is a pure evaluation count in every regime.
 
 The JAX package runs the rounds as a ``lax.while_loop``; here they are a
 host loop over device-side masks that reads the exit condition (any lane
-live) every round, one host sync each (``stats``).  The single-stream
-``_nm_while`` (stagnation restarts), ``run_accelerated`` and the
-benchmark objectives are not ported yet.
+live) every round, one host sync each (``stats``).
+
+The reference's in-house accelerated variant (nmplus.py:20-193): the
+single-stream ``_nm_while`` with stagnation restarts, ``run_accelerated``
+on a regular simplex, the host-side objective ``infidelity``, the
+benchmark objectives ``powell`` and ``f`` and the simplex helpers.  Its
+loop is a host loop too, one sync an iteration, and each iteration puts
+all its candidate points into one objective call (one kernel launch).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from code_robchar_tpu_torch.models import objectives
@@ -190,6 +196,142 @@ def _nm_while_batched(simplex0_pool, key, infid_b, lower, upper, maxfev,
         "rounds": rounds, "syncs": syncs}
 
 
+def _nm_while(simplex0, key, infid, lower, upper, maxfev, xatol=1e-4,
+              fatol=1e-4, stagnation_restart: bool = False,
+              improv_thres: float = 1e-6, max_tries: int = 30):
+    """One Nelder-Mead stream from ``simplex0`` (d+1, d), the JAX package's
+    ``_nm_while`` (nmplus.py:59-193); ``infid(xs (K, d), keys (K, 2)) ->
+    (f (K,), calls (K,))`` is a single-point objective broadcast over
+    points (objectives.make_infidelity).  Returns (best_x (d,), best_f,
+    nfev, nit, stats), the counts as int32 tensors.
+
+    Each iteration draws as the reference does: ``key, k1..k4 =
+    split(key, 5)`` for the reflection, the expansion and the two
+    contractions, then ``key, ks = split(key)`` and ``split(ks, d+1)`` for
+    the d+1 vertices of the shrink (the best one re-evaluated too), and
+    all 4 + (d+1) points go to ``infid`` as one batch.  The shrink's last
+    vertex is taken from the simplex before the replacement: under a
+    shrink the replacement is the worst point itself, so it is the same
+    vertex.  Billed are the evaluations of the sequential algorithm:
+    reflect, expand when fr < f_best, one contraction when neither is
+    accepted, d on a shrink.
+
+    With ``stagnation_restart`` (nmplus.py:162-170) an iteration whose
+    last improvement is below ``improv_thres`` counts as stagnant; after
+    ``max_tries`` of them the next stagnant one restarts from a regular
+    simplex around a uniform point (``key, kx, ks, ke = split(key, 4)``),
+    billing its d+1 evaluations' calls; ``tries`` resets only there.  The
+    reference's quirks are kept: ``improv`` starts at 0 and ``prev_best``
+    at inf, so the first iteration is stagnant.
+
+    The exit condition (and the restart decision) is read on the host
+    once an iteration: ``stats["syncs"]``; ``stats["launches"]`` counts
+    the objective calls."""
+    d = simplex0.shape[1]
+    dev, dt = simplex0.device, simplex0.dtype
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def clip(x):
+        return torch.clamp(x, lower, upper)
+
+    k0, key = prng.split(key)
+    simplex = simplex0
+    fvals, _ = infid(simplex0, prng.split(k0, d + 1))
+    nfev = torch.tensor(d + 1, **i32)
+    ncall = torch.tensor(d + 1, **i32)
+    nit = torch.tensor(0, **i32)
+    improv = torch.zeros((), dtype=dt, device=dev)
+    tries = torch.tensor(0, **i32)
+    prev_best = torch.full((), math.inf, dtype=dt, device=dev)
+    stats = {"iterations": 0, "syncs": 0, "launches": 1, "restarts": 0}
+    never = torch.zeros((), dtype=torch.bool, device=dev)
+
+    while True:
+        spread_f = (fvals - fvals[0]).abs().max()
+        spread_x = (simplex - simplex[0]).abs().max()
+        go = (ncall < maxfev) & ((spread_f > fatol) | (spread_x > xatol))
+        restart = never
+        if stagnation_restart:
+            stagnant = improv < improv_thres
+            tries = torch.where(stagnant & (tries < max_tries), tries + 1,
+                                tries)
+            restart = stagnant & (tries >= max_tries)
+        go, restart = torch.stack([go, restart]).tolist()
+        stats["syncs"] += 1
+        if not go:
+            break
+        if restart:
+            key, kx, ks, ke = prng.split(key, 4)
+            x0 = lower + (upper - lower) * prng.uniform(kx, (d,), dt).to(dev)
+            simplex = regular_simplex(x0, lower, upper, ks)
+            fvals, c = infid(simplex, prng.split(ke, d + 1))
+            nfev = nfev + c.sum(dtype=torch.int32)
+            ncall = ncall + (d + 1)
+            tries = torch.zeros_like(tries)
+            stats["launches"] += 1
+            stats["restarts"] += 1
+
+        order = torch.argsort(fvals, stable=True)
+        simplex = simplex[order]
+        fvals = fvals[order]
+        centroid = simplex[:-1].mean(0)
+        worst = simplex[-1]
+
+        key, k1, k2, k3, k4 = prng.split(key, 5).unbind(-2)
+        xr = clip(centroid + _ALPHA * (centroid - worst))
+        xe = clip(centroid + _GAMMA * (xr - centroid))
+        xc_out = clip(centroid + _RHO * (xr - centroid))
+        xc_in = clip(centroid - _RHO * (centroid - worst))
+        key, ks = prng.split(key).unbind(-2)
+        shrunk = simplex[0] + _SIGMA * (simplex - simplex[0])
+        fs, _ = infid(torch.cat([torch.stack([xr, xe, xc_out, xc_in]),
+                                 shrunk]),
+                      torch.cat([torch.stack([k1, k2, k3, k4]),
+                                 prng.split(ks, d + 1)]))
+        stats["launches"] += 1
+        fr, fe, fc_out, fc_in = fs[0], fs[1], fs[2], fs[3]
+        f_shrunk = fs[4:]
+
+        f_best, f_second_worst, f_worst = fvals[0], fvals[-2], fvals[-1]
+        use_expand = (fr < f_best) & (fe < fr)
+        use_reflect = (fr < f_second_worst) & ~use_expand
+        use_contract_out = (~use_expand & ~use_reflect &
+                            (fr < f_worst) & (fc_out <= fr))
+        use_contract_in = (~use_expand & ~use_reflect & (fr >= f_worst) &
+                           (fc_in < f_worst))
+        shrink = ~(use_expand | use_reflect | use_contract_out |
+                   use_contract_in)
+
+        new_point = torch.where(
+            use_expand, xe, torch.where(
+                use_reflect, xr, torch.where(
+                    use_contract_out, xc_out, torch.where(
+                        use_contract_in, xc_in, worst))))
+        new_f = torch.where(
+            use_expand, fe, torch.where(
+                use_reflect, fr, torch.where(
+                    use_contract_out, fc_out, torch.where(
+                        use_contract_in, fc_in, f_worst))))
+        simplex = torch.where(shrink, shrunk,
+                              torch.cat([simplex[:-1], new_point[None]]))
+        fvals = torch.where(shrink, f_shrunk,
+                            torch.cat([fvals[:-1], new_f[None]]))
+
+        seq_evals = (1 + (fr < f_best).to(torch.int32)
+                     + (~use_expand & ~use_reflect).to(torch.int32)
+                     + shrink.to(torch.int32) * d)
+        nfev = nfev + seq_evals
+        ncall = ncall + seq_evals
+        nit = nit + 1
+        best = fvals.min()
+        improv = torch.where(torch.isinf(prev_best), best, prev_best - best)
+        prev_best = best
+        stats["iterations"] += 1
+
+    i = torch.argsort(fvals, stable=True)[0]
+    return simplex[i], fvals[i], nfev, nit, stats
+
+
 def regular_simplex(x0: torch.Tensor, lower, upper, key) -> torch.Tensor:
     """Regular-simplex initialisation in the box around random magnitudes
     (the reference's accelerated-NM init_simplex, nmplus.py:20-36): vertex
@@ -245,3 +387,68 @@ class NMPlus(ControlOptimizer):
             fids = 1.0 - e
             trues = objectives.fidelity_batch(self.HH, xs, self.In, self.Out)
         return BatchResult(xs, fids, trues, nfev * mul, nit * mul)
+
+    # --------- the reference's in-house accelerated variant -------------
+
+    def infidelity(self, x) -> float:
+        """Host-side objective (nmplus.py:48-52): one controller's
+        infidelity under the run's noise, one or two ``next_key()``."""
+        if self.use_fixed_ham:
+            return 1 - self.fidelity_ss_av(x)
+        return 1 - self.fidelity_ss(x, noisy=self.fid_noisy,
+                                    ham_noisy=self.ham_noisy)
+
+    @staticmethod
+    def powell(x) -> float:
+        """Benchmark objective 1 (nmplus.py:54-60)."""
+        x = np.asarray(x, dtype=float)
+        return (((x[:-1] + x[1:]) ** 2).sum() +
+                (5 * (x[2:-1] - x[3:]) ** 2).sum() +
+                ((x[1:-1] - 2 * x[2:]) ** 4).sum() +
+                (10 * (x[:-3] - x[3:]) ** 4).sum())
+
+    @staticmethod
+    def f(x) -> float:
+        """Benchmark objective 2 (nmplus.py:61-64)."""
+        return math.sin(x[0]) * math.cos(x[1]) * (1.0 / (abs(x[2]) + 2))
+
+    def sort_simplex(self, simplex, obj_f=None):
+        """The vertices sorted by objective value and the sorted values
+        (nmplus.py:66-73); ``obj_f`` defaults to ``infidelity``."""
+        obj_f = obj_f or self.infidelity
+        simplex = np.asarray(simplex)
+        vals = [float(obj_f(v)) for v in simplex]
+        return simplex[np.argsort(vals)], sorted(vals)
+
+    def estimate_hyperplane(self, sorted_simplex, infidelities):
+        """Least-squares hyperplane coefficients through the simplex
+        (nmplus.py:76-84), the planar-reflection direction of the
+        accelerated variant (flagged broken upstream, nmplus.py:327-331),
+        solved with lstsq as the JAX package does."""
+        s = np.asarray(sorted_simplex, dtype=float)
+        x = np.ones((s.shape[0], s.shape[1] + 1))
+        x[:, 1:] = s
+        g, *_ = np.linalg.lstsq(x, np.asarray(infidelities, float),
+                                rcond=None)
+        return g[1:]
+
+    def run_accelerated(self, iterations: int, simplex=None):
+        """The reference's in-house ``_run`` (nmplus.py:152-189): one
+        regular-simplex NM stream with stagnation restarts on the
+        single-point objective, ``iterations`` objective calls at most;
+        returns (best_infidelity, best_point).  One ``next_key()`` seeds
+        both the regular simplex and the loop, as in the JAX package.
+        ``stats`` holds the loop's iterations, syncs, launches and
+        restarts."""
+        infid = objectives.make_infidelity(self.spec())
+        key = self.next_key()
+        if simplex is None:
+            x0 = torch.as_tensor(self.init_points(1)[0], dtype=self.dtype,
+                                 device=self.device)
+            simplex = regular_simplex(x0, self._lower, self._upper, key)
+        simplex = torch.as_tensor(simplex, dtype=self.dtype,
+                                  device=self.device)
+        x, f, nfev, nit, self.stats = _nm_while(
+            simplex, key, infid, self._lower, self._upper, maxfev=iterations,
+            stagnation_restart=True)
+        return float(f), x.cpu().numpy()

@@ -1,10 +1,20 @@
-"""Batched objective builders shared by the optimizer zoo (counterpart of
-code_robchar_tpu/models/objectives.py, its lanes-batch half).
+"""Objective builders shared by the optimizer zoo (counterpart of
+code_robchar_tpu/models/objectives.py).
 
 The reference builds per-optimizer ``infidelity`` closures over four noise
-regimes (qnewton.py:383-455, 500-514).  Here each regime is one function
-``(xs (K, d), key) -> (infids (K,), fcalls (K,))`` over a batch of
-controllers, with the same draws as the JAX package for the same key:
+regimes (qnewton.py:383-455, 500-514).  The JAX package has two forms of
+each, and so has the port:
+
+- the single-point builders ``make_infidelity``, ``make_exact_gradient``,
+  ``make_fd_gradient`` and ``make_wass_cost``: a function of one
+  controller ``x (d,)`` and its own key, here broadcast over a leading
+  batch, ``f(xs (K, d), keys (K, 2))`` being what ``jax.vmap(f)`` gives
+  for the same keys; a whole batch is one kernel launch;
+- the batch builders ``make_*_batch``: ``(xs (K, d), key) -> (infids (K,),
+  fcalls (K,))`` with one key for the batch, folded with the lane index.
+  Their draws differ from those of the single-point form.
+
+Each regime, with the same draws as the JAX package for the same key:
 
 - noiseless:        1 - |<out|U|in>|^2, and the exact gradient
                     (``make_exact_gradient_batch``, the gradient kernel);
@@ -19,8 +29,11 @@ controllers, with the same draws as the JAX package for the same key:
                     shots in-band.
 
 Every fidelity goes through ops/cuda_jacobi: the CUDA kernels for CUDA
-tensors, their plain versions for CPU ones.  Keys are prng keys; they may
-lie on the CPU while the batch lies on the card.
+tensors, their plain versions for CPU ones (the round-robin pivot order of
+the kernels; the JAX package's single-point functions take the cyclic
+order, which agrees to ~1e-15 at float64).  Keys are prng keys; they may
+lie on the CPU while the batch lies on the card, and the draws are made on
+the batch's device.
 """
 
 from __future__ import annotations
@@ -49,6 +62,149 @@ class ObjectiveSpec(NamedTuple):
 
 def _real(h: torch.Tensor) -> torch.Tensor:
     return (h.real if h.is_complex() else h).contiguous()
+
+
+def _lanes(h: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """(n, n, K) lanes Hamiltonians h + diag(x[:n]) for the drifts h
+    (K, n, n) (or one (n, n) for all) of the controllers xs (K, n+1); the
+    controls are added after the drift, as the single-point reference
+    forms ``h + eye * x`` (realform.py:319-326)."""
+    n = h.shape[-1]
+    k = xs.shape[0]
+    a = h.expand(k, n, n).permute(1, 2, 0).contiguous()
+    i = torch.arange(n, device=a.device)
+    a[i, i] = a[i, i] + xs[:, :n].T.to(a.dtype)
+    return a
+
+
+def _point_draws(keys: torch.Tensor, n: int, noise: float,
+                 dt: torch.dtype) -> torch.Tensor:
+    """The real-offdiagonal structured perturbation zr (K, n, n) of each
+    key (K, 2) (qnewton.py:366-379): one key a point, as the single-point
+    reference draws it."""
+    zr, _ = noise_ops.structured_perturbation_parts(
+        keys, n, noise, complex_offdiag=False, dtype=dt)
+    return zr
+
+
+def make_infidelity(spec: ObjectiveSpec):
+    """(xs (..., d), keys (..., 2)) -> (infids (...), fcalls (...) int32):
+    the single-point objective of every regime, each point with its own
+    key, as ``jax.vmap`` of the JAX package's ``make_infidelity`` (:45).
+
+    Each key splits into ``kh, ks``: the ham noise from ``kh`` (one draw a
+    point), the shot noise from ``ks``; the adaptive protocol bills
+    ``extra + draws`` calls a point, every other regime 1.  Under the
+    fixed ensemble the fidelity is the mean over its members, the shot
+    noise is drawn from the unsplit key, and the call count is 1 (the
+    optimizers apply ``train_size``).  One amplitude-kernel launch a call
+    (K x R matrices under the fixed ensemble)."""
+    n = spec.h0.shape[-1]
+    h0r = _real(spec.h0)
+    fixed = _real(spec.fixed_hams) if spec.fixed_hams is not None else None
+
+    def infid(xs, keys):
+        lead = xs.shape[:-1]
+        xs = xs.reshape(-1, n + 1)
+        keys = keys.reshape(-1, 2).to(xs.device)
+        calls = torch.ones(xs.shape[0], dtype=torch.int32, device=xs.device)
+        if fixed is not None:
+            fids = ensemble_fidelities(fixed, xs, spec.in_spin, spec.out_spin)
+            fid = fids.sum(1) / fids.shape[1]
+            if spec.fid_noisy:
+                fid = noise_ops.shot_noise_fidelity(keys, fid, spec.draws)
+            return (1.0 - fid).reshape(lead), calls.reshape(lead)
+        kh = ks = None
+        if spec.ham_noisy or spec.fid_noisy:
+            kh, ks = prng.split(keys).unbind(-2)
+        h = h0r
+        if spec.ham_noisy:
+            h = h0r + _point_draws(kh, n, spec.noise, h0r.dtype)
+        fid = cuda_jacobi.fidelity_sym(_lanes(h, xs),
+                                       xs[:, n].abs().to(h0r.dtype),
+                                       spec.in_spin, spec.out_spin)
+        if spec.fid_noisy:
+            if spec.adaptive:
+                fid, extra = noise_ops.adaptive_shot_fidelity(
+                    ks, fid, spec.draws, spec.adp_tol)
+                calls = (extra + spec.draws).to(torch.int32)
+            else:
+                fid = noise_ops.shot_noise_fidelity(ks, fid, spec.draws)
+        return (1.0 - fid).reshape(lead), calls.reshape(lead)
+
+    return infid
+
+
+def make_exact_gradient(spec: ObjectiveSpec):
+    """(xs (..., d)) -> (infids (...), grads (..., d)): the exact analytic
+    gradient of the noiseless objective (JAX :100), one launch of the
+    gradient kernel for the batch."""
+    grad_b = make_exact_gradient_batch(spec)
+    n = spec.h0.shape[-1]
+
+    def f(xs):
+        lead = xs.shape[:-1]
+        err, grad = grad_b(xs.reshape(-1, n + 1))
+        return err.reshape(lead), grad.reshape(lead + (n + 1,))
+    return f
+
+
+def make_fd_gradient(infid_fn, dim: int, eps: float = 1e-8):
+    """Forward-difference gradient of a single-point objective (JAX :243):
+    (xs (..., d), keys (..., 2)) -> (f0 (...), g (..., d), fcalls (...)).
+    Each key splits into ``dim + 1``: the first for f0, the others for the
+    probes x + eps e_i; one gradient bills the calls of its dim + 1
+    evaluations (qnewton.py:513-514), which go to ``infid_fn`` as one
+    batch."""
+    def grad(xs, keys):
+        lead = xs.shape[:-1]
+        eye = torch.eye(dim, dtype=xs.dtype, device=xs.device)
+        pts = torch.cat([xs[..., None, :], xs[..., None, :] + eps * eye],
+                        dim=-2)                          # (..., d+1, d)
+        fs, cs = infid_fn(pts, prng.split(keys, dim + 1))
+        f0 = fs[..., 0]
+        g = (fs[..., 1:] - f0[..., None]) / eps
+        return f0, g.reshape(lead + (dim,)), cs.sum(-1).to(torch.int32)
+    return grad
+
+
+#: the most Hamiltonians ``make_wass_cost`` puts in one launch (a chunk of
+#: controllers times the reps): the draws' int64 words of 2^21 matrices
+#: take ~0.5 GB a temporary
+WASS_LANES = 1 << 21
+
+
+def make_wass_cost(spec: ObjectiveSpec, bootstrap_reps: int = 5):
+    """(xs (..., d), keys (..., 2)) -> costs (...): the Wasserstein
+    robustness cost (qnewton.py:447-455; JAX :280), RIM_1 of
+    ``bootstrap_reps`` ham-noisy fidelities around each controller, clipped
+    to [0, 1].  Each key splits into ``bootstrap_reps``, one real
+    structured draw each.  The controllers go through the amplitude kernel
+    in chunks of at most ``WASS_LANES`` Hamiltonians; the keys are per
+    controller, so a chunk draws what the whole batch would."""
+    n = spec.h0.shape[-1]
+    h0r = _real(spec.h0)
+    reps = bootstrap_reps
+    chunk = max(1, WASS_LANES // reps)
+
+    def cost_chunk(xs, keys):
+        k = xs.shape[0]
+        zr = _point_draws(prng.split(keys, reps).reshape(k * reps, 2), n,
+                          spec.noise, h0r.dtype)
+        xr = xs.repeat_interleave(reps, dim=0)              # (K*R, d)
+        fids = cuda_jacobi.fidelity_sym(_lanes(h0r + zr, xr),
+                                        xr[:, n].abs().to(h0r.dtype),
+                                        spec.in_spin, spec.out_spin)
+        return wd_from_ideal(fids.clamp(0.0, 1.0).reshape(k, reps))
+
+    def cost(xs, keys):
+        lead = xs.shape[:-1]
+        xs = xs.reshape(-1, n + 1)
+        keys = keys.reshape(-1, 2).to(xs.device)
+        out = [cost_chunk(xs[i:i + chunk], keys[i:i + chunk])
+               for i in range(0, xs.shape[0], chunk)]
+        return torch.cat(out).reshape(lead)
+    return cost
 
 
 def make_exact_gradient_batch(spec: ObjectiveSpec):

@@ -1,5 +1,7 @@
 """Adam over batched parameter dicts, with a per-agent mask (the
-counterpart of ``optax.adam`` as models/ppo.py of the JAX package uses it).
+counterpart of ``optax.adam`` as models/ppo.py of the JAX package uses it),
+and RMSprop on one tensor (``optax.rmsprop``, as ``ngd`` of
+models/base.py of the JAX package uses it).
 
 Each agent owns its parameters and its optimizer state: every tensor carries
 the leading agent axis A, and ``count`` is (A,).  ``adam_update`` follows
@@ -76,3 +78,16 @@ def adam_update(grads: Dict[str, torch.Tensor], state: AdamState,
     if mask is not None:
         count = torch.where(mask, count, state.count)
     return new_p, AdamState(count=count, mu=new_mu, nu=new_nu)
+
+
+def rmsprop_update(grad: torch.Tensor, nu: torch.Tensor, w: torch.Tensor,
+                   lr: float, decay: float = 0.9, eps: float = 1e-8):
+    """One step of ``optax.rmsprop(lr)`` at its defaults (``scale_by_rms``
+    with ``eps_in_sqrt=True``, no bias correction, no momentum, the
+    accumulator starting at 0); returns (w, nu):
+
+        nu = (1 - decay) * g**2 + decay * nu
+        w  = w + (rsqrt(nu + eps) * g) * (-lr)
+    """
+    nu = (1 - decay) * grad ** 2 + decay * nu
+    return w + (torch.rsqrt(nu + eps) * grad) * (-lr), nu

@@ -40,9 +40,16 @@ clip_ratio / lrs and honours only the constructor's lam / gamma
 fixed-ham, ppo.py:364-371), or ``extra + draws`` under the adaptive
 shot protocol.
 
-Not ported, and raising ``NotImplementedError``: the Wasserstein value
-targets (``use_wass_value_targets``; ROADMAP item 10) and ``mesh`` (slice
-5).
+With ``use_wass_value_targets`` the critic regresses onto the negated
+Wasserstein robustness cost of each visited (pre-step) controller in place
+of the returns (ppo.py:280-283 of the reference program): ham-noisy
+fidelities of ``wass_bootstrap_reps`` draws each, keys
+``split(fold_in(keys_out[0], 11), T * A)`` from the rollout's refreshed
+agent keys, as the JAX package's epoch (ppo.py:681-693), through the
+amplitude kernel in chunks (models/objectives.make_wass_cost); the
+advantages keep the GAE from the value baseline.
+
+Not ported, and raising ``NotImplementedError``: ``mesh`` (slice 5).
 Nothing is compiled, so the JAX package's program cache has no
 counterpart: the epoch reads ``env.noise`` at each call.
 """
@@ -57,7 +64,7 @@ import torch
 
 from code_robchar_tpu_torch import config
 from code_robchar_tpu_torch.models import actor_critic as ac
-from code_robchar_tpu_torch.models import optim
+from code_robchar_tpu_torch.models import objectives, optim
 from code_robchar_tpu_torch.models.env import (EnvConfig, EnvState,
                                                Environment)
 from code_robchar_tpu_torch.ops import critic as critic_ops
@@ -264,8 +271,9 @@ class PPO_en:
         self.fused_critic = fused_critic
         self.fused_rollout = fused_rollout
         #: called with a stage name at each stage boundary of an epoch
-        #: ("start", "rollout", "true_fid", "values", "pi", "critic"), e.g.
-        #: to record CUDA events; None does nothing
+        #: ("start", "rollout", "true_fid", "values", "wass_targets" under
+        #: use_wass_value_targets, "pi", "critic"), e.g. to record CUDA
+        #: events; None does nothing
         self.stage_hook: Optional[Callable[[str], None]] = None
 
         # the Experiment driver mutates .env.noise post-construction
@@ -350,10 +358,6 @@ class PPO_en:
         (st', EpochOut)``.  The drift is taken now; ``self.env.noise`` is
         read at each call (the Experiment driver trains one PPO per sigma
         cell, noise_analysis.py:343-344)."""
-        if self.use_wass_value_targets:
-            raise NotImplementedError(
-                "use_wass_value_targets needs the single-point "
-                "make_wass_cost, not ported yet (ROADMAP item 10)")
         self._signal_fused_fallbacks()
 
         cfg = self._cfg()
@@ -393,6 +397,19 @@ class PPO_en:
             phr = phr.reshape(a_cnt, r_cnt).mean(-1)
             phi = phi.reshape(a_cnt, r_cnt).mean(-1)
             return phr * phr + phi * phi
+
+        def wass_targets(obs, keys, noise):
+            """The Wasserstein cost (T, A) of each visited controller obs
+            (T, A, d), from the refreshed agent keys (A, 2)."""
+            spec = objectives.ObjectiveSpec(
+                h0=h0, in_spin=cfg.in_spin, out_spin=cfg.out_spin,
+                noise=noise, fid_noisy=False, ham_noisy=True,
+                draws=cfg.draws, adaptive=False, adp_tol=cfg.adp_tol,
+                fixed_hams=None, mul_fac=1)
+            t_len, a_cnt = obs.shape[:2]
+            kw = prng.split(prng.fold_in(keys[0], 11), t_len * a_cnt)
+            return objectives.make_wass_cost(spec, self.wass_bootstrap_reps)(
+                obs.reshape(t_len * a_cnt, d), kw).reshape(t_len, a_cnt)
 
         def rollout(st: AgentState, noise: float):
             a_cnt, t_len = st.obs.shape[0], steps_per_epoch
@@ -514,8 +531,11 @@ class PPO_en:
                 std = advs.std(0, correction=0, keepdim=True)
                 advs = (advs - advs.mean(0, keepdim=True)) / torch.clamp_min(
                     std, 1e-8)
-                rets_af = rets.T.contiguous()
                 self._stage("values")
+                if self.use_wass_value_targets:
+                    rets = -wass_targets(obs, keys, noise)
+                    self._stage("wass_targets")
+                rets_af = rets.T.contiguous()
 
             params, pi_opt, kl, pi_iters = policy_update(
                 st.params, st.pi_opt, obs_af, act_af, advs.T.contiguous(),

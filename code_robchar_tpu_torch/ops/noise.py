@@ -80,6 +80,46 @@ def structured_perturbation_parts(key: torch.Tensor, n: int, scale,
     return zr, zi
 
 
+def _direction_table(n: int) -> torch.Tensor:
+    """Hermitian-pair index table of ``directional_perturbation``
+    (noise_model.py:155-163): the corners, the tridiagonal band of the
+    interior sites, and the boundary off-diagonal pairs; (P, 2) int64."""
+    dirs = [(0, 0), (n - 1, n - 1)]
+    for d in range(1, n - 1):
+        for o in (-1, 0, 1):
+            dirs.append((d, d + o))
+    dirs += [(0, 1), (1, 0), (n - 2, n - 1), (n - 1, n - 2)]
+    return torch.tensor(dirs, dtype=torch.int64)
+
+
+def directional_perturbation(key: torch.Tensor, n: int, scale,
+                             dtype: torch.dtype = torch.complex64
+                             ) -> torch.Tensor:
+    """Perturb one randomly chosen Hermitian pair (noise_model.py:165-201):
+    z[p] = a + i b and z[p^T] = a - i b with a, b ~ N(0, scale), (n, n) of
+    ``dtype`` for one key (2,).  ``ki, kv = split(key)``: the pair's index
+    is a ``randint`` from ki (64-bit words at complex128, as jax draws them
+    under x64, 32-bit at complex64), a and b one normal draw of width 2
+    from kv.  A diagonal pick holds conj(a + i b) alone: the reference
+    assigns the value and then its conjugate to the same entry."""
+    rdt = config.real_dtype(dtype)
+    table = _direction_table(n)
+    ki, kv = prng.split(key)
+    idx = int(prng.randint(ki, (), 0, table.shape[0],
+                           dtype=torch.int64 if rdt == torch.float64
+                           else torch.int32))
+    i, j = (int(v) for v in table[idx])
+    ab = prng.normal(kv, (2,), rdt) * torch.as_tensor(scale, dtype=rdt)
+    val = torch.complex(ab[0], ab[1]).to(dtype)
+    z = torch.zeros((n, n), dtype=dtype, device=key.device)
+    if i == j:
+        z[i, i] = val.conj()
+    else:
+        z[i, j] = val
+        z[j, i] = val.conj()
+    return z
+
+
 def assemble_lanes(h0r: torch.Tensor, xs: torch.Tensor, scales: torch.Tensor,
                    keys: torch.Tensor, complex_offdiag: bool = True):
     """Perturbed, biased Hamiltonians in the lanes layout.

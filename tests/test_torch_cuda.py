@@ -625,3 +625,85 @@ def test_binomial_on_card_matches_cpu(dev, form):
     got = prng.binomial(key.to(dev), count.to(dev), p.to(dev)).cpu()
     want = prng.binomial(key, count, p)
     assert float((got != want).double().mean()) <= 1e-3
+
+
+def test_env_on_card_takes_the_amplitude_kernel(dev):
+    """Env.true_fid, env_step (noisy, noiseless and the fixed ensemble) on
+    the card launch the lane-group amplitude kernel and agree with the CPU
+    plain version (cyclic order) within the kernel bar."""
+    from code_robchar_tpu_torch.models import env
+
+    kw = dict(ham_noisy=True, seed=4, dtype=torch.float32)
+    card = env.Environment(5, 0, 4, device=dev, **kw)
+    cpu = env.Environment(5, 0, 4, device="cpu", **kw)
+    action = np.diag(np.random.default_rng(0).uniform(-3, 3, 5))
+    before = cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
+    got = card.true_fid(action, 7.5)
+    assert cuda_jacobi.SYM_AMP_GROUP_LAUNCHES == before + 1
+    assert abs(got - cpu.true_fid(action, 7.5)) <= 3e-5
+    card.timestep = cpu.timestep = 2.0
+    before = cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
+    (_, r_card, _), (_, r_cpu, _) = card.step(action), cpu.step(action)
+    # the noisy reward and the true fidelity: two launches
+    assert cuda_jacobi.SYM_AMP_GROUP_LAUNCHES == before + 2
+    assert abs(r_card - r_cpu) <= 3e-5 and abs(card.tf - cpu.tf) <= 3e-5
+    fixed = env.Environment(4, 0, 3, device=dev, use_fixed_ham=True,
+                            opt_train_size=6, dtype=torch.float32)
+    before = cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
+    reward = fixed.fidelity()
+    assert cuda_jacobi.SYM_AMP_GROUP_LAUNCHES == before + 2
+    assert 0.0 <= reward <= 1.0 + 1e-5
+
+
+def test_single_point_objectives_on_card_match_cpu(dev):
+    """make_infidelity (ham_noisy), make_exact_gradient and make_wass_cost
+    at N=5 on 64 points with fixed keys: the card's kernels against the
+    CPU plain versions on the same keys, one launch a call."""
+    from code_robchar_tpu_torch.models import objectives
+
+    n = 5
+    rng = np.random.default_rng(3)
+    xs = np.column_stack([rng.uniform(-3, 3, (64, n)),
+                          rng.uniform(0.5, 6, 64)])
+    keys = prng.split(prng.key(5), 64)
+
+    def spec(device):
+        return objectives.ObjectiveSpec(
+            h0=chain.xx_hamiltonian_real(n, device=device), in_spin=0,
+            out_spin=n - 1, noise=0.05, fid_noisy=False, ham_noisy=True,
+            draws=10, adaptive=False, adp_tol=0.05, fixed_hams=None,
+            mul_fac=1)
+
+    x_card = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    x_cpu = x_card.cpu()
+    amp0, grad0 = _sym_launches()
+    f_card, _ = objectives.make_infidelity(spec(dev))(x_card, keys)
+    assert _sym_launches()[0] == amp0 + 1
+    f_cpu, _ = objectives.make_infidelity(spec("cpu"))(x_cpu, keys)
+    assert float((f_card.cpu() - f_cpu).abs().max()) <= 3e-5
+    e_card, g_card = objectives.make_exact_gradient(spec(dev))(x_card)
+    assert _sym_launches()[1] == grad0 + 1
+    e_cpu, g_cpu = objectives.make_exact_gradient(spec("cpu"))(x_cpu)
+    assert float((g_card.cpu() - g_cpu).abs().max()) <= 1e-4
+    w_card = objectives.make_wass_cost(spec(dev), 5)(x_card, keys)
+    assert _sym_launches()[0] == amp0 + 2
+    w_cpu = objectives.make_wass_cost(spec("cpu"), 5)(x_cpu, keys)
+    assert float((w_card.cpu() - w_cpu).abs().max()) <= 3e-5
+
+
+def test_base_helpers_run_on_the_optimizers_device(dev):
+    """overlap_ss and directional_perturbation of an optimizer on the card
+    compute there, and agree with the CPU optimizer of the same seed."""
+    from code_robchar_tpu_torch.models import NMPlus
+
+    kw = dict(testing=True, seed=6, noise=0.3, dtype=torch.float32)
+    card, cpu = NMPlus(5, 0, 4, device=dev, **kw), \
+        NMPlus(5, 0, 4, device="cpu", **kw)
+    x = np.random.default_rng(2).uniform(-1, 1, 6)
+    assert abs(card.overlap_ss(x) - cpu.overlap_ss(x)) <= 1e-5
+    for _ in range(6):
+        z = card.directional_perturbation()
+        assert z.device.type == "cuda"
+        want = cpu.directional_perturbation()
+        assert torch.equal(z.cpu() != 0, want != 0)
+        torch.testing.assert_close(z.cpu(), want, rtol=1e-6, atol=1e-7)

@@ -14,9 +14,11 @@ optim, ppo) against the JAX package, on the CPU at small sizes.
   would pass).  Both of the port's paths: its default (the kernels' plain
   versions on the CPU) and fused_rollout=False, fused_critic=False (the
   per-step loop and the autograd value loop).
+- The same epoch with the Wasserstein value targets
+  (``use_wass_value_targets``, 5 bootstrap reps), on both paths, at the
+  same bars.
 - The KL gate, run() in its budget and threshold modes, the fixed-ham
-  billing, the gate diagnostics, and what raises (the Wasserstein value
-  targets also under shot noise, which runs: tests/test_torch_shot_noise.py).
+  billing, the gate diagnostics, and what raises (``mesh``).
 """
 
 import numpy as np
@@ -129,16 +131,28 @@ def test_adam_matches_optax_with_mask():
     assert st.count.tolist() == list(np.asarray(jstate[0].count))
 
 
+#: the Wasserstein value targets' options
+WASS = dict(use_wass_value_targets=True, wass_bootstrap_reps=5)
+
+
 @pytest.fixture(scope="module")
 def jax_epoch():
-    """One JAX epoch from a float64 AgentState: (state in, state out,
-    EpochOut)."""
-    jp = JPPO_en(4, 0, 2, testing=True, num_agents=8, seed=7, ham_noisy=True,
-                 fused_critic=False, fused_rollout=False)
-    st = _f64(jax.vmap(jp._init_agent)(
-        jax.random.split(jax.random.key(0), 8)))
-    st2, out = jp._build_epoch(*EPOCH)(st)
-    return st, st2, out
+    """``get(wass)``: one JAX epoch from a float64 AgentState, with the
+    Wasserstein value targets when ``wass``: (state in, state out,
+    EpochOut), each built once."""
+    epochs = {}
+
+    def get(wass):
+        if wass not in epochs:
+            jp = JPPO_en(4, 0, 2, testing=True, num_agents=8, seed=7,
+                         ham_noisy=True, fused_critic=False,
+                         fused_rollout=False, **(WASS if wass else {}))
+            st = _f64(jax.vmap(jp._init_agent)(
+                jax.random.split(jax.random.key(0), 8)))
+            st2, out = jp._build_epoch(*EPOCH)(st)
+            epochs[wass] = st, st2, out
+        return epochs[wass]
+    return get
 
 
 def _port_ppo(**kw):
@@ -146,12 +160,15 @@ def _port_ppo(**kw):
                   ham_noisy=True, **F64, **kw)
 
 
-@pytest.mark.parametrize("fused", [None, False])
-def test_epoch_matches_jax(jax_epoch, fused):
-    st, jst2, jout = jax_epoch
+@pytest.mark.parametrize("fused,wass", [(None, False), (False, False),
+                                        (None, True), (False, True)])
+def test_epoch_matches_jax(jax_epoch, fused, wass):
+    """With ``wass`` the critic regresses onto the Wasserstein targets, so
+    the critic's parameters and Adam state hold them to 1e-10."""
+    st, jst2, jout = jax_epoch(wass)
     pst = ppo.agent_state_from_jax(st, jax.random.key_data(st.key))
-    pst2, out = _port_ppo(fused_rollout=fused, fused_critic=fused) \
-        ._build_epoch(*EPOCH)(pst)
+    pst2, out = _port_ppo(fused_rollout=fused, fused_critic=fused,
+                          **(WASS if wass else {}))._build_epoch(*EPOCH)(pst)
     for name in ("rewards", "true_fids", "stores", "kl"):
         np.testing.assert_allclose(getattr(out, name).numpy(),
                                    np.asarray(getattr(jout, name)),
@@ -285,12 +302,7 @@ def test_fallback_reasons_are_signalled(capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("kw,item", [(dict(fid_noisy=True,
-                                          use_wass_value_targets=True),
-                                     "item 10"),
-                                     (dict(use_wass_value_targets=True),
-                                      "item 10"),
-                                     (dict(mesh=object()), "slice 5")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "slice 5")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         PPO_en(3, 0, 2, testing=True, device="cpu", **kw).run(
