@@ -264,10 +264,53 @@ Phases:
     against the CPU plain version from the same keys within 3e-5.  (d) ngd
     for 200 steps (the lane-group gradient kernel once a step, B=1) and
     one wass_cost: walls and launches.
+15. the pipeline, run before the kernels line of 14 (N=7, 0 -> 6, float32
+    on the card), from a temporary working directory.  (a) The collect
+    driver in-process, drivers.run_experiments_single_controller_set_with_le
+    with 1000 controllers, noise_res 3 and max_noise 0.1
+    (training noises 0, 0.05, 0.1), ham_noisy, fid_threshold (0.0, see
+    PIPE_FID_THRESHOLD) and the rest at the CLI's defaults, and a budget of
+    PIPE_BUDGET fcalls a run, cut from the paper's 1,000,000 (the paper
+    also sets fid_threshold 0.1): each family's run() wrapped so that every
+    kernel's count is set to 0 just before and read just after; the wall, the
+    objective calls per second and the launches of each run; L-BFGS (its
+    forward differences of the ham-noisy objective), NM and SNOB must
+    launch an amplitude kernel, PPO the rollout kernel, the bf16 critic
+    kernel and an amplitude kernel.  Each run's stored controllers must
+    beat its starts: the best noiseless fidelity (float64, the CPU plain
+    version) of the controllers its record stores must exceed that of its
+    starting points (the zoo families' restart starts, PPO's first
+    epoch).  The
+    .le store must hold exactly lbfgs under "7" and nmplus, snob and ppo
+    under "0.0", "0.05" and "0.1", each cell 1 to 1000 finite controllers
+    of width 8.  Then the collect's PPO kernels at its shapes against
+    their plain versions at phase 8's bars: the rollout at A=1, T=500,
+    h=100, ham noise, 5 sweeps, max_ep_len 1000; the bf16 critic at A=1,
+    T=500, h=100 and iters 1, 7, 200.  (b) MCDataSim on that store (noises linspace(0, 0.1, 11),
+    bootreps 100, seed 0, 1000 controllers): get_metrics_dict for the ten
+    sets, 11M Hamiltonians; kernel 1's count must rise by at least the
+    sweeps' chunks of 131072, every metric tensor be (11, 1000) and
+    finite where the set has controllers, and the native codec be the one
+    that ran; each stage timed, synchronised (the sweeps, metric_tensors,
+    the .mc writes and their native encode, the .mc reads, the .mcm JSON),
+    and the bytes written.  (c) A fresh MCDataSim returns equal dicts with
+    no launch, and load_mc with the sidecar off returns the tensors last
+    written bit for bit.  (d) The shipped store
+    artifacts/selfgen/experiments/pipeline_selfgen/ppo_spin_7_0-6_c_1000.le,
+    set (ppo, "0.05"), characterised the same way: its RIM tensor's sum
+    within 0.1 of the JAX package's at float32 (ANCHOR_RIM_SUM; the
+    float64 value is printed beside it: its draws are other samples); a
+    16-controller slice (zero-noise fidelity median ~0.29) within 1e-3
+    (RIM, std, worst case) of the float32 plain path on the CPU on every
+    noise level and of the float64 one on the zero-noise level.  (e)
+    ``python -m code_robchar_tpu_torch.exp.drivers`` with no command must
+    exit 2 with its usage line, and a process that imports the drivers
+    and datasim must hold no jax and nothing of the JAX package.
 14. the kernels JSON line (all ten kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
-    events (the four zoo kernels' launches on the paths of phases 5, 8, 12
-    and 13, the rollout and bf16 critic kernels' on phases 8 and 13, timed
+    events (kernel 1's launches on phases 3 and 15, the four zoo kernels'
+    on the paths of phases 5, 8, 12, 13 and 15, the rollout and bf16
+    critic kernels' on phases 8, 13 and 15, timed
     at the batch of their path: 9216 and
     1024 for the lane-group ones, 131072 for the one-thread gradient
     kernel, the PPO epoch's 512,000 for the one-thread amplitude kernel),
@@ -286,6 +329,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -295,6 +339,10 @@ import numpy as np
 import torch
 
 JAX_RIM_CHECKSUM = 109979.109   # JAX package, same key and inputs
+#: the repository root (this file's directory) and the RIM's key in the
+#: metric dicts
+REPO = os.path.dirname(os.path.abspath(__file__))
+RIM = r"$W(.,\delta(x-1))$"
 TOL_KERNEL = 3e-5
 TOL_SLICE = 1e-3
 TOL_GRAD_ORACLE = 1e-4
@@ -1292,7 +1340,7 @@ def _hold_rollout(label, args, kw, free=True):
         ep = torch.where(term, 0, ep + 1)
     parted = (err > TOL_PPO) | flags | ~torch.isfinite(err)
     n_parted, n_other = int(parted.sum()), int((parted & ~near).sum())
-    worst = float(err[~parted].max())
+    worst = float(err[~parted].max()) if n_parted < a_cnt else float("nan")
 
     ok = n_other == 0 and n_parted <= 0.01 * a_cnt
     report = ""
@@ -2650,6 +2698,511 @@ def phase_single_point():
     return launches, out
 
 
+#: phase 15, the pipeline: the collect's fcall budget a run, cut from the
+#: paper's 1,000,000 (scripts/get_paper_data.sh:14) to keep the collect
+#: under two minutes: PPO runs one agent under Experiment, ~0.125 s a
+#: 500-step epoch on the card, so 25 s a noise level at this budget (the
+#: runs' walls and rates are printed)
+PIPE_BUDGET = 100_000
+PAPER_BUDGET = 1_000_000
+PIPE_N, PIPE_OUT, PIPE_CONTROLLERS = 7, 6, 1000
+PIPE_NOISES = np.linspace(0, 0.1, 11)
+PIPE_BOOTREPS = 100
+#: the collect's --fid_threshold: the CLI's default 0.0, not the paper's
+#: 0.1.  A landscape-exploration run offers every batch's points to its
+#: top-1000 store and writes that store from its first batch whose best
+#: reaches the threshold on, so the threshold decides only whether a cell
+#: is written at all: where 0.1 fills a cell, 0.0 fills it with the same
+#: controllers.  At the cut budget 0.1 leaves zoo cells empty on the card:
+#: L-BFGS at sigma 0 (the same Sobol starts every run) ends its one batch
+#: below it, and Nelder-Mead under ham noise reaches it in few runs.  As
+#: 0.0 passes any search, each run is gated on beating its starts instead
+PIPE_FID_THRESHOLD = 0.0
+PIPE_SETS = [("lbfgs", None)] + [(a, tn) for a in ("nmplus", "snob", "ppo")
+                                 for tn in ("0.0", "0.05", "0.1")]
+#: the RIM tensor's sum on (ppo, "0.05") of the shipped store
+#: artifacts/selfgen/experiments/pipeline_selfgen/ppo_spin_7_0-6_c_1000.le:
+#: the JAX package's MCDataSim on the CPU, use_jacobi=True, seed 0,
+#: noises linspace(0, 0.1, 11), bootreps 100, 1000 controllers, on a copy
+#: of the store, at float32 (jax_enable_x64 off).  The card sweeps in
+#: float32, whose normal draws take one 32-bit threefry word an element;
+#: at float64 (two words an element) the draws are other samples and the
+#: same call gives ANCHOR_RIM_SUM_F64, 0.66 away.  The bar is phase 3's
+#: 1.0 on 110,000 entries scaled to this tensor's 11,000.
+ANCHOR_RIM_SUM = 7841.659901872277
+ANCHOR_RIM_SUM_F64 = 7842.319102361715
+ANCHOR_TOL = 0.1
+ANCHOR_STORE = ("artifacts/selfgen/experiments/pipeline_selfgen/"
+                "ppo_spin_7_0-6_c_1000.le")
+#: the families' kernels under the collect's noise (ham_noisy, the CLI's
+#: default): each run must have launched one of every group.  L-BFGS
+#: takes forward differences of the noisy objective through the amplitude
+#: kernel (its gradient kernel is the noiseless route, phases 5, 12, 13)
+PIPE_KERNELS = {"lbfgs": [AMP_KERNELS], "nmplus": [AMP_KERNELS],
+                "snob": [AMP_KERNELS],
+                "ppo": [("actor_env_rollout",), ("critic_train_bf16",),
+                        AMP_KERNELS]}
+
+
+def _pipeline_counts():
+    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, rollout
+
+    return dict(_zoo_counts(), herm_jacobi_fidelity=cuda_jacobi.LAUNCHES,
+                actor_env_rollout=rollout.LAUNCHES_REG,
+                actor_env_rollout_generic=rollout.LAUNCHES,
+                critic_train_bf16=critic.LAUNCHES_BF16,
+                critic_train=critic.LAUNCHES)
+
+
+def _reset_pipeline_counts():
+    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, rollout
+
+    _reset_zoo_counts()
+    cuda_jacobi.LAUNCHES = 0
+    rollout.LAUNCHES_REG = rollout.LAUNCHES = 0
+    critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
+
+
+class _FamilyRuns:
+    """Wraps run() of every family of the port's registry for the
+    collect: each run starts with every kernel's count set to 0 and its
+    wall, func_calls and counts are read just after, synchronised.  It
+    also keeps each run's starting points, for the progress gate: the
+    zoo families' restart starts (the x0s of every ``_run_batch``) and
+    PPO's first epoch (the first points it offers to its top store)."""
+
+    def __init__(self):
+        from code_robchar_tpu_torch.models import MODEL_REGISTRY
+        from code_robchar_tpu_torch.utils.record import TopControllers
+
+        self.registry = MODEL_REGISTRY
+        self.top = TopControllers
+        self.own = {n: c.__dict__.get("run") for n, c in
+                    MODEL_REGISTRY.items()}
+        self.own_batch = {n: c.__dict__.get("_run_batch") for n, c in
+                          MODEL_REGISTRY.items()}
+        self.own_offer = TopControllers.offer_many
+        self.runs = []
+        self.family = None
+        self.starts = []
+
+    def _wrap(self, name, fn):
+        def run(model, *args, **kwargs):
+            torch.cuda.synchronize()
+            self.family, self.starts = name, []
+            _reset_pipeline_counts()
+            start = time.perf_counter()
+            out = fn(model, *args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            counts = _pipeline_counts()
+            self.family = None
+            noise = model.env.noise if name == "ppo" else model.noise
+            h0 = (model.Monte_env if name == "ppo" else model).HH
+            self.runs.append(dict(
+                family=name, noise=float(noise), wall=wall,
+                fcalls=model.record["func_calls"], counts=counts,
+                h0=h0.detach().cpu(), io=(model.In, model.Out),
+                starts=np.concatenate(self.starts),
+                stored=np.asarray(model.record.get("controllers") or [],
+                                  dtype=np.float64)))
+            return out
+        return run
+
+    def _wrap_batch(self, fn):
+        def run_batch(model, x0s, keys):
+            if self.family is not None:
+                self.starts.append(x0s.detach().cpu().numpy())
+            return fn(model, x0s, keys)
+        return run_batch
+
+    def _offer_many(self, top, fids, controllers):
+        if self.family == "ppo" and not self.starts:
+            self.starts.append(np.asarray(controllers, dtype=np.float64))
+        return self.own_offer(top, fids, controllers)
+
+    def __enter__(self):
+        for name, cls in self.registry.items():
+            cls.run = self._wrap(name, cls.run)
+            if self.own_batch[name] is not None:
+                cls._run_batch = self._wrap_batch(self.own_batch[name])
+        runs = self
+
+        def offer_many(top, fids, controllers):
+            return runs._offer_many(top, fids, controllers)
+
+        self.top.offer_many = offer_many
+        return self
+
+    def __exit__(self, *exc):
+        self.top.offer_many = self.own_offer
+        for name, cls in self.registry.items():
+            for attr, own in (("run", self.own[name]),
+                              ("_run_batch", self.own_batch[name])):
+                if own is None:
+                    if attr in cls.__dict__:
+                        delattr(cls, attr)
+                else:
+                    setattr(cls, attr, own)
+
+
+def _true_fids(h0, xs, io):
+    """Noiseless fidelities of controllers xs (K, n+1) under the drift h0,
+    by the plain version on the CPU at float64: the progress gate's
+    measure, independent of the card's kernels and of their counts."""
+    from code_robchar_tpu_torch.models import objectives
+
+    if len(xs) == 0:
+        return np.zeros(0)
+    return objectives.fidelity_batch(
+        h0.to(torch.float64), torch.as_tensor(xs, dtype=torch.float64),
+        *io).numpy()
+
+
+class _StageClock:
+    """Synchronised host seconds, calls and bytes written of the cache
+    layer's stages, installed on the modules that MCDataSim calls through
+    (it reads each function from its module at call time)."""
+
+    def __init__(self):
+        from code_robchar_tpu_torch.mc import engine
+        from code_robchar_tpu_torch.utils import io, native_io
+
+        self.targets = {"sweep": (engine, "mc_fidelity_sweep"),
+                        "metric_tensors": (engine, "metric_tensors"),
+                        "mc write": (native_io, "dump_mc"),
+                        "mc encode": (native_io, "_encode_native_bytes"),
+                        "mc read": (native_io, "load_mc"),
+                        "mcm write": (io, "dump_json"),
+                        "mcm read": (io, "load_json")}
+        self.saved = {k: getattr(m, a) for k, (m, a) in self.targets.items()}
+        self.seconds = dict.fromkeys(self.targets, 0.0)
+        self.calls = dict.fromkeys(self.targets, 0)
+        self.bytes = {"mc": 0, "mcb": 0, "mcm": 0}
+        self.written = {}      # .mc path -> the tensors last written there
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if label == "metric_tensors":
+                for v in out.values():
+                    v.sum().item()
+            torch.cuda.synchronize()
+            self.seconds[label] += time.perf_counter() - start
+            self.calls[label] += 1
+            if label == "mc write":
+                tensors, path = args
+                self.written[path] = {k: np.array(v, dtype=np.float64)
+                                      for k, v in tensors.items()}
+                self.bytes["mc"] += os.path.getsize(path)
+                if os.path.exists(path + ".mcb"):
+                    self.bytes["mcb"] += os.path.getsize(path + ".mcb")
+            if label == "mcm write":
+                self.bytes["mcm"] += os.path.getsize(args[1])
+            return out
+        return timed
+
+    def __enter__(self):
+        for label, (module, attr) in self.targets.items():
+            setattr(module, attr, self._wrap(label, self.saved[label]))
+        return self
+
+    def __exit__(self, *exc):
+        for label, (module, attr) in self.targets.items():
+            setattr(module, attr, self.saved[label])
+
+
+def _pipe_sim(name, root, numcontrollers=None, device="cuda",
+              dtype=torch.float32):
+    from code_robchar_tpu_torch.mc import MCDataSim
+
+    return MCDataSim(name, Nspin=PIPE_N, inspin=0, outspin=PIPE_OUT,
+                     noises=PIPE_NOISES, bootreps=PIPE_BOOTREPS,
+                     numcontrollers=numcontrollers or PIPE_CONTROLLERS,
+                     filemarker=".le",
+                     seed=0, global_experiments_directory=root,
+                     device=device, dtype=dtype)
+
+
+def _same_metrics(a, b):
+    return set(a) == set(b) and all(
+        np.array_equal(np.asarray(a[k], dtype=float),
+                       np.asarray(b[k], dtype=float), equal_nan=True)
+        for k in a)
+
+
+def _collect():
+    """(a): the collect driver at full width, in-process, from the working
+    directory (it writes ./experiments/)."""
+    from code_robchar_tpu_torch.exp import drivers
+
+    argv = ["--exp_name", "pipeline_smoke", "--nspin", str(PIPE_N),
+            "--inspin", "0", "--outspin", str(PIPE_OUT),
+            "--num_controllers", str(PIPE_CONTROLLERS),
+            "--fid_threshold", str(PIPE_FID_THRESHOLD), "--noise_res", "3",
+            "--max_noise", "0.1",
+            "--run_until_completion_its", str(PIPE_BUDGET)]
+    print(f"(a) collect: drivers.run_experiments_single_controller_set_with_"
+          f"le {' '.join(argv)} (ham_noisy and the other flags at the CLI's "
+          f"defaults); budget {PIPE_BUDGET} fcalls a run, cut from the "
+          f"paper's {PAPER_BUDGET} (scripts/get_paper_data.sh:14)")
+    start = time.perf_counter()
+    with _FamilyRuns() as fam:
+        exp = drivers.run_experiments_single_controller_set_with_le(argv)
+    wall = time.perf_counter() - start
+    stalled = []
+    for r in fam.runs:
+        used = {k: v for k, v in r["counts"].items() if v}
+        rate = (f"{r['fcalls'] / r['wall']:.1f} objective calls/s"
+                if r["fcalls"] else "no controller reached the threshold")
+        first = float(_true_fids(r["h0"], r["starts"], r["io"]).max())
+        kept = _true_fids(r["h0"], r["stored"], r["io"])
+        best = float(kept.max()) if kept.size else float("nan")
+        print(f"  collect {r['family']} noise {r['noise']:g}: wall "
+              f"{r['wall']:.3f} s, func_calls {r['fcalls']}, {rate}, "
+              f"launches {used}; noiseless fidelity (float64, cpu): best "
+              f"of the {len(r['starts'])} "
+              f"{'first-epoch points' if r['family'] == 'ppo' else 'starts'}"
+              f" {first:.4f}, best of the {len(kept)} stored {best:.4f}, "
+              f"stored median "
+              f"{float(np.median(kept)) if kept.size else float('nan'):.4f}")
+        for group in PIPE_KERNELS[r["family"]]:
+            if sum(r["counts"][k] for k in group) <= 0:
+                raise RuntimeError(f"collect {r['family']} launched none of "
+                                   f"{group}: {r['counts']}")
+        if not best > first:
+            stalled.append((r["family"], r["noise"], first, best))
+    if stalled:
+        raise RuntimeError(f"collect runs whose stored controllers do not "
+                           f"beat their starts (family, noise, starts' "
+                           f"best, stored best): {stalled}")
+    runs = [(r["family"], r["noise"]) for r in fam.runs]
+    want = [("lbfgs", 0.0)] + [(f, n) for n in (0.0, 0.05, 0.1)
+                               for f in ("ppo", "nmplus", "snob")]
+    print(f"  collect: {len(runs)} runs, wall {wall:.2f} s; retries 0 (the "
+          f"collector has no retry loop: a failed run fails the phase)")
+    if sorted(runs) != sorted(want):
+        raise RuntimeError(f"collect ran {runs}, expected {want}")
+
+    with open(exp.filename) as f:
+        store = json.load(f)
+    cells = {}
+    for algo, tn in PIPE_SETS:
+        key = str(PIPE_N) if algo == "lbfgs" else tn
+        ctrl = np.asarray(store[algo][key]["controller"], dtype=float)
+        cells[algo, tn] = len(ctrl)
+        if not (1 <= len(ctrl) <= PIPE_CONTROLLERS and ctrl.ndim == 2
+                and ctrl.shape[1] == PIPE_N + 1
+                and np.isfinite(ctrl).all()):
+            raise RuntimeError(f"store cell ({algo}, {key}): shape "
+                               f"{ctrl.shape}")
+    keys = {a: sorted(v) for a, v in store.items()}
+    print(f"  store {exp.filename}: {keys}; controllers a cell {cells}")
+    if keys != {"lbfgs": [str(PIPE_N)], "nmplus": ["0.0", "0.05", "0.1"],
+                "snob": ["0.0", "0.05", "0.1"],
+                "ppo": ["0.0", "0.05", "0.1"]}:
+        raise RuntimeError(f"store keys {keys}")
+    launched = {}
+    for r in fam.runs:
+        for k, v in r["counts"].items():
+            launched[k] = launched.get(k, 0) + v
+    return cells, launched, wall
+
+
+def _hold_collect_kernels():
+    """The collect's PPO kernels at the shapes it gives them, against
+    their plain versions at phase 8's bars: one agent (Experiment passes
+    no num_agents), T=500, h=100, ham noise, the float32 sweep count at
+    N=7 and max_ep_len 1000 for the rollout; A=1, T=500, h=100 and 200
+    iterations at vf_lr for the bf16 critic.  These launches are made
+    outside the collect's count windows."""
+    from code_robchar_tpu_torch.ops import realform
+
+    kw = dict(in_spin=0, out_spin=PIPE_OUT,
+              sweeps=realform._sweeps_for(torch.float32, PIPE_N), bmax=10.0,
+              maxtime=30.0, max_ep_len=1000, ham_noisy=True)
+    rollout_err = _hold_rollout(
+        "collect-shaped, ham_noisy=True",
+        _rollout_inputs(1, PPO_STEPS, True, seed=31), kw, free=False)
+    critic_err, _, _ = _hold_critic_bf16(
+        "collect-shaped", _critic_inputs(1, PPO_STEPS, seed=32), 100, 1e-3)
+    return {"rollout": rollout_err, "critic_bf16": critic_err}
+
+
+def _characterise(cells):
+    """(b) and (c): every set of the collected store through MCDataSim on
+    the card, then a fresh MCDataSim that must load every result."""
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+    from code_robchar_tpu_torch.utils import native_io
+
+    total = len(PIPE_NOISES) * PIPE_CONTROLLERS * PIPE_BOOTREPS
+    sim = _pipe_sim("pipeline_smoke", "experiments")
+    _reset_pipeline_counts()
+    start = time.perf_counter()
+    with _StageClock() as clock:
+        dicts = {(a, tn): sim.get_metrics_dict(tn, algoname=a)[a]
+                 for a, tn in PIPE_SETS}
+    wall = time.perf_counter() - start
+    launches = cuda_jacobi.LAUNCHES
+    chunks = len(PIPE_SETS) * -(-total // 131072)
+    print(f"(b) characterise: {len(PIPE_SETS)} sets x {total} Hamiltonians "
+          f"= {len(PIPE_SETS) * total} through MCDataSim (N={PIPE_N}, "
+          f"float32 on the card, use_jacobi=True); wall {wall:.3f} s; "
+          f"kernel 1 launches {launches} (at least {chunks}: chunks of "
+          f"131072); native codec {native_io.native_available()}")
+    stages = ", ".join(f"{k} {clock.seconds[k]:.3f} s ({clock.calls[k]})"
+                       for k in clock.targets)
+    print(f"  stages (synced, calls): {stages}; .mc writes less encode "
+          f"{clock.seconds['mc write'] - clock.seconds['mc encode']:.3f} s "
+          f"(file writes and the .mcb sidecar)")
+    print(f"  bytes written: .mc {clock.bytes['mc']}, .mcb sidecar "
+          f"{clock.bytes['mcb']}, .mcm {clock.bytes['mcm']}")
+    if not native_io.native_available():
+        raise RuntimeError("the native .mc codec did not build or load")
+    if launches < chunks:
+        raise RuntimeError(f"kernel 1 launched {launches} times, fewer "
+                           f"than the sweeps' {chunks} chunks")
+    for (a, tn), md in dicts.items():
+        n_real = min(cells[a, tn], PIPE_CONTROLLERS)
+        for k, v in md.items():
+            v = np.asarray(v, dtype=float)
+            if v.shape != (len(PIPE_NOISES), PIPE_CONTROLLERS) or \
+                    not np.isfinite(v[:, :n_real]).all():
+                raise RuntimeError(f"({a}, {tn}) {k!r}: shape {v.shape}")
+
+    # (c) a fresh MCDataSim loads every result; no kernel launches
+    _reset_pipeline_counts()
+    start = time.perf_counter()
+    again = _pipe_sim("pipeline_smoke", "experiments")
+    same = all(_same_metrics(again.get_metrics_dict(tn, algoname=a)[a],
+                             dicts[a, tn]) for a, tn in PIPE_SETS)
+    reload_s = time.perf_counter() - start
+    path, wrote = sorted(clock.written.items())[-1]
+    saved, native_io.SIDECAR = native_io.SIDECAR, False
+    try:
+        start = time.perf_counter()
+        read = native_io.load_mc(path)
+        json_s = time.perf_counter() - start
+    finally:
+        native_io.SIDECAR = saved
+    exact = list(read) == list(wrote) and all(
+        read[k].tobytes() == wrote[k].tobytes() for k in wrote)
+    print(f"(c) reload: {len(PIPE_SETS)} metric dicts equal {same} in "
+          f"{reload_s:.3f} s, kernel 1 launches {cuda_jacobi.LAUNCHES}; "
+          f"load_mc without the sidecar {json_s:.3f} s: {sorted(read)} "
+          f"bit-equal to what was written {exact}")
+    if not same or cuda_jacobi.LAUNCHES or not exact:
+        raise RuntimeError("the reload recomputed or changed a result")
+    return launches, wall
+
+
+def _anchor(root):
+    """(d): the shipped store's (ppo, "0.05") set against the JAX
+    package's RIM sum, and a 16-controller slice against the plain path on
+    the CPU: at float32 (the same draws) on every noise level, at float64
+    on the zero-noise level (no draws: the same Hamiltonians)."""
+    import shutil
+
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+
+    name = "pipeline_selfgen"
+    for sub, width in (("anchor", PIPE_CONTROLLERS), ("slice_cuda", 16),
+                       ("slice_cpu", 16), ("slice_cpu64", 16)):
+        os.makedirs(os.path.join(root, sub, name))
+        shutil.copy(os.path.join(REPO, ANCHOR_STORE), os.path.join(
+            root, sub, name, f"ppo_spin_7_0-6_c_{width}.le"))
+    _reset_pipeline_counts()
+    start = time.perf_counter()
+    sim = _pipe_sim(name, os.path.join(root, "anchor"))
+    md = sim.get_metrics_dict("0.05", algoname="ppo")["ppo"]
+    wall = time.perf_counter() - start
+    rim = np.asarray(md[RIM], dtype=np.float64)
+    fid0 = sim.get_fid_dists("0.05", algoname="ppo")["ppo"][0]
+    delta = float(rim.sum()) - ANCHOR_RIM_SUM
+    print(f"(d) anchor {ANCHOR_STORE} (ppo, 0.05): RIM tensor {rim.shape} "
+          f"sum {rim.sum():.6f} vs the JAX package's {ANCHOR_RIM_SUM} at "
+          f"float32 (delta {delta:+.6f}, tol {ANCHOR_TOL}; its float64 "
+          f"draws give {ANCHOR_RIM_SUM_F64}, delta "
+          f"{float(rim.sum()) - ANCHOR_RIM_SUM_F64:+.6f}); zero-noise "
+          f"fidelity median {np.median(fid0):.4f}; wall {wall:.3f} s, "
+          f"kernel 1 launches {cuda_jacobi.LAUNCHES}")
+    if rim.shape != (len(PIPE_NOISES), PIPE_CONTROLLERS) or \
+            not np.isfinite(rim).all() or abs(delta) > ANCHOR_TOL:
+        raise RuntimeError(f"anchor RIM sum {rim.sum()} misses "
+                           f"{ANCHOR_RIM_SUM} by {delta}")
+    card = _pipe_sim(name, os.path.join(root, "slice_cuda"), 16)
+    got = card.get_metrics_dict("0.05", algoname="ppo")["ppo"]
+    for sub, dtype, rows in (("slice_cpu", torch.float32, slice(None)),
+                             ("slice_cpu64", torch.float64, slice(0, 1))):
+        cpu = _pipe_sim(name, os.path.join(root, sub), 16, device="cpu",
+                        dtype=dtype)
+        ref = cpu.get_metrics_dict("0.05", algoname="ppo")["ppo"]
+        for k in (RIM, "std", "worst case fid"):
+            a, b = (np.asarray(m[k])[rows] for m in (got, ref))
+            err = float(np.abs(a - b).max())
+            print(f"  slice 16 controllers, noise levels {a.shape[0]}, "
+                  f"{k!r}: max|cuda f32 - cpu {str(dtype)[6:]}| {err:.3e} "
+                  f"(tol {TOL_SLICE:g}; held values' median "
+                  f"{np.median(np.abs(b)):.4f})")
+            if not err <= TOL_SLICE:
+                raise RuntimeError(f"the pipeline slice disagrees with the "
+                                   f"{dtype} plain path on {k!r}: {err}")
+    return cuda_jacobi.LAUNCHES
+
+
+def _entry_point_alone():
+    """(e): the CLI in a process of its own, and the pipeline's modules'
+    imports free of jax and of the JAX package."""
+    proc = subprocess.run([sys.executable, "-m",
+                           "code_robchar_tpu_torch.exp.drivers"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    usage = proc.stdout.strip()
+    print(f"(e) python -m code_robchar_tpu_torch.exp.drivers: exit "
+          f"{proc.returncode}, {usage!r}")
+    if proc.returncode != 2 or not usage.startswith(
+            "usage: python -m code_robchar_tpu_torch.exp.drivers"):
+        raise RuntimeError(f"the CLI without a command: {proc}")
+    probe = ("import json, sys\n"
+             "import code_robchar_tpu_torch.exp.drivers\n"
+             "import code_robchar_tpu_torch.mc.datasim\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+             "or m.startswith('jax.') or m == 'code_robchar_tpu' or "
+             "m.startswith('code_robchar_tpu.'))))\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    found = proc.stdout.strip()
+    print(f"  modules of jax or the JAX package after importing drivers and "
+          f"datasim: {found} (exit {proc.returncode})")
+    if proc.returncode != 0 or found != "[]":
+        raise RuntimeError(f"the pipeline imports {found}: {proc.stderr}")
+
+
+def phase_pipeline():
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="robchar_pipeline_")
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        cells, launched, collect_s = _collect()
+        start = time.perf_counter()
+        held = _hold_collect_kernels()
+        print(f"  the collect's PPO kernels held: "
+              f"{time.perf_counter() - start:.1f} s")
+        herm, char_s = _characterise(cells)
+        herm += _anchor(root)
+    finally:
+        os.chdir(here)
+        shutil.rmtree(root, ignore_errors=True)
+    _entry_point_alone()
+    launched["herm_jacobi_fidelity"] += herm
+    return launched, dict(collect_s=collect_s, characterise_s=char_s,
+                          held=held)
+
+
 def _run(phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -2673,6 +3226,7 @@ def main():
     noisy = _run(phase_shot_noise)
     adam_snob_launches, adam_snob = _run(phase_adam_snob, zoo_err)
     sp_launches, sp = _run(phase_single_point)
+    pipe_launches, pipe = _run(phase_pipeline)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -2700,6 +3254,15 @@ def main():
             zoo_launches[name] += launched[name]
     for name in ("rollout", "critic_bf16"):
         ppo_launches[name] += sp_launches[name]
+    # phase 15's launches: the collect's zoo and PPO kernels, and kernel 1
+    # in the characterisation
+    for name in zoo_launches:
+        zoo_launches[name] += pipe_launches[name]
+    ppo_launches["rollout"] += pipe_launches["actor_env_rollout"]
+    ppo_launches["critic_bf16"] += pipe_launches["critic_train_bf16"]
+    for name, held in pipe["held"].items():
+        ppo_err[name] = max(ppo_err[name], held)
+    launches += pipe_launches["herm_jacobi_fidelity"]
     zoo_err["sym_jacobi_amp"] = max(zoo_err["sym_jacobi_amp"], amp_err)
     kernels = [
         entry("herm_jacobi_fidelity",
@@ -2740,7 +3303,10 @@ def main():
           f"{sp['nm_noiseless_it_s']:.1f} iterations/s, ham_noisy "
           f"{sp['nm_ham_noisy_it_s']:.1f}; PPO with Wasserstein targets "
           f"{sp['ppo_wass_rate']:.1f} env-steps/s (targets {sp['wass_ms']:.2f} "
-          f"ms an epoch, peak {sp['peak_gib']:.3f} GiB); card {smi}")
+          f"ms an epoch, peak {sp['peak_gib']:.3f} GiB); pipeline (N=7) "
+          f"collect {pipe['collect_s']:.2f} s at {PIPE_BUDGET} fcalls a run, "
+          f"characterise {pipe['characterise_s']:.3f} s for "
+          f"{len(PIPE_SETS)} sets of 1.1M Hamiltonians; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ never the JAX package.
 
 Layout (the Monte-Carlo characterisation slice, the optimizer zoo's
 registry families L-BFGS, Nelder-Mead, Adam and SNOB, the PPO slice,
-binomial shot noise and the measurement probes):
+binomial shot noise, the measurement probes, and the pipeline's entry
+points: the drivers CLI, Experiment and MCDataSim with its caches):
 
 - ``config``   dtype helpers, the device resolver, TF32 off
 - ``ops``      counter-based threefry PRNG with jax's randint and binomial
@@ -20,17 +21,25 @@ binomial shot noise and the measurement probes):
                (``cuda_jacobi``), the PPO rollout and critic kernels'
                dispatch and plain versions (``rollout``, ``critic``), the
                probe kernels' (``probes``), Sobol restart streams
-               (``sobol``)
-- ``metrics``  RIM / Wasserstein metrics, DKW bands, the metric registry
+               (``sobol``), complex-eigh fidelities (``propagate``)
+- ``metrics``  RIM / Wasserstein metrics, DKW bands, the metric registry,
+               the host-side statistical helpers (ranks, CDFs, VN test)
 - ``mc``       the chunked Monte-Carlo sweep, its fused metric reduction,
-               the bootstrap std of a statistic
+               the bootstrap std of a statistic, and ``MCDataSim``, the
+               cached characterisation (.mc / .mcm files either package
+               loads)
+- ``exp``      the drivers CLI (``python -m
+               code_robchar_tpu_torch.exp.drivers``), ``Experiment`` and
+               its controller stores (.le), the namer and the flags
 - ``perf``     the probe path: the probe kernels' K-sweeps on the card
 - ``models``   the zoo's batched objectives, run loop, L-BFGS, NMPlus,
                Adam and SNOB, and their registry; PPO's environment,
                actor-critic, masked Adam and trainer
 - ``utils``    the nvcc build of ``csrc/*.cu`` and its ctypes loader, the
-               record protocol, deadlines, JSON IO
-- ``csrc``     CUDA C++ kernel sources (sm_90a) and their shared header
+               record protocol, deadlines, cache names and JSON IO, the
+               native .mc codec (``native_io``, g++ of ``csrc/mccodec.cpp``)
+- ``csrc``     CUDA C++ kernel sources (sm_90a) and their shared header;
+               the C++ cache codec
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""The Monte-Carlo robustness engine."""
+"""The cachable Monte-Carlo robustness engine."""
 
 from code_robchar_tpu_torch.mc.engine import (
     mc_fidelity_sweep,
@@ -8,6 +8,7 @@ from code_robchar_tpu_torch.mc.engine import (
     characterise,
     bootstrap_statistic_std,
 )
+from code_robchar_tpu_torch.mc.datasim import MCDataSim, remove_redundant_ticks
 
 __all__ = [
     "mc_fidelity_sweep",
@@ -16,4 +17,6 @@ __all__ = [
     "arim_from_rims",
     "characterise",
     "bootstrap_statistic_std",
+    "MCDataSim",
+    "remove_redundant_ticks",
 ]

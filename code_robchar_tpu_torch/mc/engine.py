@@ -8,7 +8,9 @@ real-coupling and imaginary-coupling keys, as the JAX engine does),
 assembles the perturbed, biased Hamiltonian in the lanes layout
 (ops/noise.assemble_lanes) and scores its transfer fidelity
 (ops/cuda_jacobi.fidelity_herm: the CUDA kernel for CUDA tensors, the
-plain version for CPU ones):
+plain version for CPU ones; ``use_jacobi=False`` takes instead the JAX
+package's LAPACK parity path, a complex ``torch.linalg.eigh`` of the same
+draws through ops/propagate.py, on the same device):
 
     fid[l, c, b] = |<out| exp(-i T_c (H0 + Z(key_lcb, sigma_l)
                     + diag(x_c))) |in>|^2
@@ -31,7 +33,7 @@ from code_robchar_tpu_torch import config
 from code_robchar_tpu_torch.metrics.rim import (compute_dkw_error,
                                                 wd_from_ideal_zero)
 from code_robchar_tpu_torch.metrics.stats import metric_registry
-from code_robchar_tpu_torch.ops import cuda_jacobi, noise, prng
+from code_robchar_tpu_torch.ops import cuda_jacobi, noise, prng, propagate
 
 #: elements per chunk on the CPU (keeps an x64 chunk's working set small)
 DEFAULT_CHUNK = 8192
@@ -54,14 +56,21 @@ def _setup(h0, controllers, noises, key, device, chunk):
 
 
 def _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin, out_spin,
-          complex_offdiag):
+          complex_offdiag, use_jacobi):
     """Fidelities of the lattice elements with flat ids ``ids``."""
     num_c = ctrl.shape[0]
     keys = prng.fold_in(key, ids)       # the flat id is the global id
     cell = ids // bootreps
-    ar, ai, t = noise.assemble_lanes(h0r, ctrl[cell % num_c],
-                                     noises[cell // num_c], keys,
-                                     complex_offdiag)
+    xs, scales = ctrl[cell % num_c], noises[cell // num_c]
+    if not use_jacobi:
+        # the element kernel of the JAX package's LAPACK path: the complex
+        # perturbation of the same keys, then a complex eigh
+        h0c = h0r.to(config.complex_dtype(h0r.dtype))
+        z = noise.structured_perturbation(keys, h0r.shape[-1], scales,
+                                          complex_offdiag, dtype=h0c.dtype)
+        return propagate.fidelity_from_controller(h0c + z, xs, in_spin,
+                                                  out_spin)
+    ar, ai, t = noise.assemble_lanes(h0r, xs, scales, keys, complex_offdiag)
     return cuda_jacobi.fidelity_herm(ar, ai, t, in_spin, out_spin)
 
 
@@ -69,13 +78,17 @@ def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
                       bootreps: int, in_spin: int, out_spin: int,
                       complex_offdiag: bool = True,
                       chunk: Optional[int] = None,
-                      device=None) -> torch.Tensor:
+                      device=None, use_jacobi: bool = True) -> torch.Tensor:
     """Fidelity-distribution tensor of shape (L, C, B).
 
     h0: (n, n) drift Hamiltonian (its real part is used); controllers:
     (C, n+1); noises: (L,); key: a prng key.  numpy or torch inputs;
     ``device=None`` resolves as config.resolve_device.  The sweep at noise
-    level l uses sigma = noises[l] for every draw (mcsim.py:425)."""
+    level l uses sigma = noises[l] for every draw (mcsim.py:425).
+    ``use_jacobi=True`` scores each chunk with the Jacobi fidelity (the
+    kernel on the card, its plain version on the CPU); ``False`` with a
+    complex eigh of the same draws (ops/propagate.py).  Neither route falls
+    back to the other."""
     h0r, ctrl, noises, key, chunk = _setup(h0, controllers, noises, key,
                                            device, chunk)
     num_l, num_c = noises.shape[0], ctrl.shape[0]
@@ -86,7 +99,7 @@ def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
                            device=h0r.device)
         out[start:start + len(ids)] = _fids(h0r, ctrl, noises, key, ids,
                                             bootreps, in_spin, out_spin,
-                                            complex_offdiag)
+                                            complex_offdiag, use_jacobi)
     return out.reshape(num_l, num_c, bootreps)
 
 
@@ -95,12 +108,13 @@ def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
                     complex_offdiag: bool = True,
                     chunk: Optional[int] = None,
                     alpha: float = 0.05,
-                    device=None) -> Dict[str, torch.Tensor]:
+                    device=None,
+                    use_jacobi: bool = True) -> Dict[str, torch.Tensor]:
     """Metric tensors (5 metrics x 3 DKW bands, each (L, C)) with the
     reduction fused into the sweep: the same draws as
     ``metric_tensors(mc_fidelity_sweep(...), alpha)``, without holding the
     (L, C, B) fidelity tensor.  Each chunk holds whole cells, about
-    ``chunk`` elements."""
+    ``chunk`` elements.  ``use_jacobi`` as in ``mc_fidelity_sweep``."""
     h0r, ctrl, noises, key, chunk = _setup(h0, controllers, noises, key,
                                            device, chunk)
     num_l, num_c = noises.shape[0], ctrl.shape[0]
@@ -112,7 +126,7 @@ def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
         ids = torch.arange(start, min(start + step, total),
                            device=h0r.device)
         fids = _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin,
-                     out_spin, complex_offdiag)
+                     out_spin, complex_offdiag, use_jacobi)
         parts.append(metric_tensors(fids.reshape(-1, bootreps), alpha))
     return {k: torch.cat([p[k] for p in parts]).reshape(num_l, num_c)
             for k in parts[0]}
@@ -149,13 +163,15 @@ def characterise(h0, controllers, noises, key: torch.Tensor, bootreps: int,
                  in_spin: int, out_spin: int, *, alpha: float = 0.05,
                  complex_offdiag: bool = True, chunk: Optional[int] = None,
                  return_fids: bool = True,
-                 device=None) -> Dict[str, torch.Tensor]:
+                 device=None,
+                 use_jacobi: bool = True) -> Dict[str, torch.Tensor]:
     """One-call robustness characterisation: the five-metric x three-band
     tensor dict, plus the (L, C, B) ``fids`` when ``return_fids``.
     ``return_fids=False`` takes the fused sweep (mc_metric_sweep): the same
-    metric values without holding the fidelity tensor."""
+    metric values without holding the fidelity tensor.  ``use_jacobi`` as
+    in ``mc_fidelity_sweep``."""
     kwargs = dict(complex_offdiag=complex_offdiag, chunk=chunk,
-                  device=device)
+                  device=device, use_jacobi=use_jacobi)
     if not return_fids:
         return mc_metric_sweep(h0, controllers, noises, key, bootreps,
                                in_spin, out_spin, alpha=alpha, **kwargs)

@@ -1,5 +1,5 @@
 """Robustness metrics: RIM / Wasserstein reductions, DKW bands, the
-metric registry."""
+metric registry, the statistical test kit."""
 
 from code_robchar_tpu_torch.metrics.rim import (
     wd_from_ideal,
@@ -9,8 +9,13 @@ from code_robchar_tpu_torch.metrics.rim import (
     dkw_ecdf_bounds,
 )
 from code_robchar_tpu_torch.metrics.stats import (
+    get_cdf,
+    get_supcdf,
+    vn_test,
     quantile_yield,
     metric_registry,
+    get_ranks,
+    clustered_ranks,
 )
 
 # Reference-compatible aliases (wd_sortof_fast_implementation.py exports).
@@ -24,7 +29,12 @@ __all__ = [
     "RIM_p",
     "compute_dkw_error",
     "dkw_ecdf_bounds",
+    "get_cdf",
+    "get_supcdf",
+    "vn_test",
     "quantile_yield",
     "Q",
     "metric_registry",
+    "get_ranks",
+    "clustered_ranks",
 ]

@@ -149,21 +149,40 @@ def make_exact_gradient(spec: ObjectiveSpec):
     return f
 
 
-def make_fd_gradient(infid_fn, dim: int, eps: float = 1e-8):
+#: the forward-difference step where the dtype resolves the JAX package's
+#: 1e-8 (float64); below float64 it is sqrt of the dtype's machine epsilon
+#: (3.45e-4 at float32), the rule that gives scipy's 1.49e-8 at float64.
+#: At float32, x + 1e-8 rounds to x for |x| > 0.17, so the JAX package's
+#: step gives a zero difference on nearly every coordinate of the
+#: controller box and L-BFGS stops at its starts.
+FD_EPS_F64 = 1e-8
+
+
+def fd_eps(dtype: torch.dtype, eps: Optional[float] = None) -> float:
+    """The forward-difference step for ``dtype``: ``eps`` when given."""
+    if eps is not None:
+        return eps
+    if dtype == torch.float64:
+        return FD_EPS_F64
+    return float(torch.finfo(dtype).eps) ** 0.5
+
+
+def make_fd_gradient(infid_fn, dim: int, eps: Optional[float] = None):
     """Forward-difference gradient of a single-point objective (JAX :243):
     (xs (..., d), keys (..., 2)) -> (f0 (...), g (..., d), fcalls (...)).
     Each key splits into ``dim + 1``: the first for f0, the others for the
-    probes x + eps e_i; one gradient bills the calls of its dim + 1
-    evaluations (qnewton.py:513-514), which go to ``infid_fn`` as one
-    batch."""
+    probes x + eps e_i (``fd_eps``: the JAX package's 1e-8 at float64);
+    one gradient bills the calls of its dim + 1 evaluations
+    (qnewton.py:513-514), which go to ``infid_fn`` as one batch."""
     def grad(xs, keys):
+        eps_ = fd_eps(xs.dtype, eps)
         lead = xs.shape[:-1]
         eye = torch.eye(dim, dtype=xs.dtype, device=xs.device)
-        pts = torch.cat([xs[..., None, :], xs[..., None, :] + eps * eye],
+        pts = torch.cat([xs[..., None, :], xs[..., None, :] + eps_ * eye],
                         dim=-2)                          # (..., d+1, d)
         fs, cs = infid_fn(pts, prng.split(keys, dim + 1))
         f0 = fs[..., 0]
-        g = (fs[..., 1:] - f0[..., None]) / eps
+        g = (fs[..., 1:] - f0[..., None]) / eps_
         return f0, g.reshape(lead + (dim,)), cs.sum(-1).to(torch.int32)
     return grad
 
@@ -331,19 +350,23 @@ def make_infidelity_batch(spec: ObjectiveSpec):
     return infid
 
 
-def make_fd_gradient_batch(infid_batch_fn, dim: int, eps: float = 1e-8):
+def make_fd_gradient_batch(infid_batch_fn, dim: int,
+                           eps: Optional[float] = None):
     """Batched forward-difference gradient: (xs (K, d), key) ->
-    (f0 (K,), g (K, d), fcalls (K,)).  All K*(d+1) probes ride one lanes
-    batch; one gradient costs d+1 objective calls (qnewton.py:513-514)."""
+    (f0 (K,), g (K, d), fcalls (K,)), the step from ``fd_eps``.  All
+    K*(d+1) probes ride one lanes batch; one gradient costs d+1 objective
+    calls (qnewton.py:513-514)."""
     def grad(xs, key):
+        eps_ = fd_eps(xs.dtype, eps)
         k = xs.shape[0]
         eye = torch.eye(dim, dtype=xs.dtype, device=xs.device)
-        probes = torch.cat([xs[:, None, :], xs[:, None, :] + eps * eye[None]],
+        probes = torch.cat([xs[:, None, :],
+                            xs[:, None, :] + eps_ * eye[None]],
                            dim=1)                         # (K, d+1, d)
         fs, cs = infid_batch_fn(probes.reshape(k * (dim + 1), dim), key)
         fs = fs.reshape(k, dim + 1)
         f0 = fs[:, 0]
-        g = (fs[:, 1:] - f0[:, None]) / eps
+        g = (fs[:, 1:] - f0[:, None]) / eps_
         return f0, g, cs.reshape(k, dim + 1).sum(1).to(torch.int32)
     return grad
 

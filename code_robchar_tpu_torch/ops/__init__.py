@@ -1,5 +1,5 @@
 """Numeric ops: threefry PRNG, chain Hamiltonians, structured noise, the
-plain Jacobi solvers and their CUDA kernels.  The PPO rollout and critic
+plain Jacobi solvers and their CUDA kernels, the complex-eigh fidelities.  The PPO rollout and critic
 kernels live in ops/rollout.py and ops/critic.py."""
 
 from code_robchar_tpu_torch.ops.chain import (
@@ -25,6 +25,12 @@ from code_robchar_tpu_torch.ops.realform import (
     fidelity_from_controller_sym,
     infidelity_and_gradient_sym,
 )
+from code_robchar_tpu_torch.ops.propagate import (
+    propagator,
+    transfer_fidelity,
+    fidelity_from_controller,
+    fidelity_batch,
+)
 from code_robchar_tpu_torch.ops.cuda_jacobi import (
     fidelity_herm,
     transfer_amp_sym,
@@ -49,6 +55,10 @@ __all__ = [
     "jacobi_eigh_sym",
     "fidelity_from_controller_sym",
     "infidelity_and_gradient_sym",
+    "propagator",
+    "transfer_fidelity",
+    "fidelity_from_controller",
+    "fidelity_batch",
     "fidelity_herm",
     "transfer_amp_sym",
     "fidelity_sym",

@@ -1,1 +1,2 @@
-"""Build support: nvcc compilation of csrc/ and the ctypes loader."""
+"""Host utilities: the kernels' build (nvcc, ctypes), cache names and JSON
+IO, the native .mc codec, the record protocol, timeouts and renaming."""

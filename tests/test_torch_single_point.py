@@ -13,7 +13,10 @@ JAX package, on the CPU at float64 and small sizes (N=4).
   1e-4 of the float64 reference on random controllers and on the ring's
   exactly degenerate spectrum (tests/test_realform.py's bar).
 - ``make_fd_gradient`` with tests/test_torch_zoo.py's bar: f0 within
-  1e-10, the difference quotient within 1e-10 / eps, calls equal.
+  1e-10, the difference quotient within 1e-10 / eps, calls equal.  The
+  float32 step (``fd_eps``, which the JAX package does not have): the
+  gradient within 1e-2 of the exact one, and noisy L-BFGS leaves its
+  starts.
 - ``make_wass_cost`` within 1e-10, also across its chunks.
 - The base helpers against a JAX optimizer with the same seed:
   ``wass_cost``, ``overlap_ss``, ``structured_perturabation`` and
@@ -153,6 +156,43 @@ def test_make_fd_gradient_matches_jax(regime):
     assert np.abs(gg.numpy() - np.asarray(wg)).max() * eps <= TOL
     np.testing.assert_array_equal(gc.numpy(), wc)
     assert gc.numpy().min() >= N + 2
+
+
+def test_fd_step_resolves_float32():
+    """The forward-difference step (objectives.fd_eps): the JAX package's
+    1e-8 at float64, sqrt of the machine epsilon at float32.  At float32
+    the 1e-8 step gives a zero gradient on every coordinate of 32 seeded
+    controllers; the float32 step's batched gradient (sigma 0 ham noise,
+    the collect's lbfgs cell) lies within 1e-2 of the exact float64
+    gradient (its error is ~3e-3: rounding ~6e-8 / 3.45e-4 and the
+    truncation).  A float32 noisy L-BFGS batch of 16 Sobol starts moves
+    every start it iterates and beats its best start."""
+    from code_robchar_tpu_torch.models import LBFGS
+
+    assert objectives.fd_eps(torch.float64) == 1e-8
+    assert objectives.fd_eps(torch.float32) == pytest.approx(2.0 ** -11.5)
+    assert objectives.fd_eps(torch.float32, 1e-3) == 1e-3
+    xs = _xs(32, seed=5)
+    exact = LBFGS(N, 0, 2, testing=True, **F64)
+    _, want = objectives.make_exact_gradient_batch(exact.spec())(_t(xs))
+    opt = LBFGS(N, 0, 2, ham_noisy=True, noise=0.0, testing=True,
+                device="cpu", dtype=torch.float32)
+    infid = objectives.make_infidelity_batch(opt.spec())
+    x32 = _t(xs, torch.float32)
+    _, g_old, _ = objectives.make_fd_gradient_batch(infid, N + 1, 1e-8)(
+        x32, prng.key(0))
+    assert bool((g_old == 0).all())
+    _, g, _ = objectives.make_fd_gradient_batch(infid, N + 1)(x32,
+                                                            prng.key(0))
+    assert float(want.abs().max()) > 0.5
+    assert float((g.double() - want).abs().max()) <= 1e-2
+
+    x0 = torch.as_tensor(opt.init_points(16), dtype=torch.float32)
+    res = opt._run_batch(x0, prng.split(prng.key(0), 16))
+    moved = (res.x != x0).any(1)
+    assert bool(moved[res.nit > 1].all()) and int(moved.sum()) >= 12
+    best0 = float(objectives.fidelity_batch(opt.HH, x0, 0, 2).max())
+    assert float(res.true_fid.max()) > best0 + 0.1
 
 
 def test_make_wass_cost_matches_jax(monkeypatch):
