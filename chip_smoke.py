@@ -280,7 +280,10 @@ Phases:
     beat its starts: the best noiseless fidelity (float64, the CPU plain
     version) of the controllers its record stores must exceed that of its
     starting points (the zoo families' restart starts, PPO's first
-    epoch).  The
+    epoch); Nelder-Mead under ham noise ranks its store by the noisy
+    estimate and, as the JAX package's does, may store nothing above its
+    best start, so there the gate is that under half of its stored
+    controllers are starts.  The
     .le store must hold exactly lbfgs under "7" and nmplus, snob and ppo
     under "0.0", "0.05" and "0.1", each cell 1 to 1000 finite controllers
     of width 8.  Then the collect's PPO kernels at its shapes against
@@ -306,9 +309,34 @@ Phases:
     ``python -m code_robchar_tpu_torch.exp.drivers`` with no command must
     exit 2 with its usage line, and a process that imports the drivers
     and datasim must hold no jax and nothing of the JAX package.
+16. the figures, run after 15 and before the kernels line of 14 (N=5,
+    0 -> 2, float32 on the card, noises linspace(0, 0.1, 11), seed 0), on
+    copies of the in-repo selfgen stores in a temporary directory; each
+    stage with every count set to 0 just before, timed by the port's
+    utils.trace.Stopwatch and ``timed`` (synchronising a CUDA tensor).
+    (a) The characterised figures at the paper's size (1000 controllers,
+    100 bootreps, the ten sets: 11M Hamiltonians):
+    IndividualContComparisons._rim_bands of every set fills the .mc / .mcm
+    caches (kernel 1 at least once a chunk of 131072);
+    KTRConsistency.pairwise_taus on _rim, ARIMGenerator.arim_curve and
+    ExploringRIMK.rim_k_tensor (ppo at the index of "0.05") reload them
+    with no launch.  (b) NStochOpt.get_arims over every (marker, algo,
+    nlvl) of the scaling store (100 controllers a checkpoint: one launch of
+    110,000 Hamiltonians each): checkpoints, launches, seconds; a second
+    pass loads every pickle with no launch and equal values.  (c)
+    CDFAreaExample.get_sd_results on legacy stores written from the
+    1000-controller store (100 controllers, noises linspace(0, 1, 11),
+    100 bootreps; ppo's "0.05"), then joint_ecdfs at sigma 0.5.  (d) fig
+    8's row FIG8_CELL and fig 5's ARIM curve (snob, "0.05") against the
+    port's float32 plain version on the CPU from the same keys and against
+    the JAX package's float32 values (JAX_FIG8_ROW, JAX_FIG5_ARIM): within
+    FIG_TOL; every value printed by (a)-(c) finite, each ARIM curve at
+    sigma 0 at most its value at sigma 0.1.  (e) A PPO actor-critic's
+    parameters and Adam states through utils.checkpoint, restored onto the
+    card bit-equal.
 14. the kernels JSON line (all ten kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
-    events (kernel 1's launches on phases 3 and 15, the four zoo kernels'
+    events (kernel 1's launches on phases 3, 15 and 16, the four zoo kernels'
     on the paths of phases 5, 8, 12, 13 and 15, the rollout and bf16
     critic kernels' on phases 8, 13 and 15, timed
     at the batch of their path: 9216 and
@@ -2699,11 +2727,11 @@ def phase_single_point():
 
 
 #: phase 15, the pipeline: the collect's fcall budget a run, cut from the
-#: paper's 1,000,000 (scripts/get_paper_data.sh:14) to keep the collect
-#: under two minutes: PPO runs one agent under Experiment, ~0.125 s a
-#: 500-step epoch on the card, so 25 s a noise level at this budget (the
-#: runs' walls and rates are printed)
-PIPE_BUDGET = 100_000
+#: paper's 1,000,000 (scripts/get_paper_data.sh:14) to keep the whole run
+#: near half its limit: PPO runs one agent under Experiment, ~0.1 s a
+#: 500-step epoch on the card, so ~11 s a noise level at this budget (the
+#: runs' walls and rates are printed); 100,000 until phase 16 was added
+PIPE_BUDGET = 50_000
 PAPER_BUDGET = 1_000_000
 PIPE_N, PIPE_OUT, PIPE_CONTROLLERS = 7, 6, 1000
 PIPE_NOISES = np.linspace(0, 0.1, 11)
@@ -2846,6 +2874,16 @@ class _FamilyRuns:
                     setattr(cls, attr, own)
 
 
+def _share_of_starts(stored, starts, tol=1e-6):
+    """The share of the stored controllers that are (within ``tol``) one
+    of the run's starts: 1 for a search that never left them."""
+    if len(stored) == 0:
+        return 1.0
+    dist = np.abs(np.asarray(stored, dtype=np.float64)[:, None, :] -
+                  np.asarray(starts, dtype=np.float64)[None, :, :])
+    return float((dist.max(-1).min(1) <= tol).mean())
+
+
 def _true_fids(h0, xs, io):
     """Noiseless fidelities of controllers xs (K, n+1) under the drift h0,
     by the plain version on the CPU at float64: the progress gate's
@@ -2960,6 +2998,7 @@ def _collect():
         first = float(_true_fids(r["h0"], r["starts"], r["io"]).max())
         kept = _true_fids(r["h0"], r["stored"], r["io"])
         best = float(kept.max()) if kept.size else float("nan")
+        at_starts = _share_of_starts(r["stored"], r["starts"])
         print(f"  collect {r['family']} noise {r['noise']:g}: wall "
               f"{r['wall']:.3f} s, func_calls {r['fcalls']}, {rate}, "
               f"launches {used}; noiseless fidelity (float64, cpu): best "
@@ -2967,17 +3006,24 @@ def _collect():
               f"{'first-epoch points' if r['family'] == 'ppo' else 'starts'}"
               f" {first:.4f}, best of the {len(kept)} stored {best:.4f}, "
               f"stored median "
-              f"{float(np.median(kept)) if kept.size else float('nan'):.4f}")
+              f"{float(np.median(kept)) if kept.size else float('nan'):.4f}"
+              f"; share of the stored that are starts {at_starts:.3f}")
         for group in PIPE_KERNELS[r["family"]]:
             if sum(r["counts"][k] for k in group) <= 0:
                 raise RuntimeError(f"collect {r['family']} launched none of "
                                    f"{group}: {r['counts']}")
-        if not best > first:
-            stalled.append((r["family"], r["noise"], first, best))
+        # Nelder-Mead under ham noise ranks its store by the noisy
+        # estimate: the JAX package's runs too may store nothing above the
+        # best start's noiseless fidelity (tests/test_torch_nm_ham_noise.py),
+        # so there the gate is that the search left its starts
+        noisy_nm = r["family"] == "nmplus" and r["noise"] > 0
+        if not (at_starts < 0.5 if noisy_nm else best > first):
+            stalled.append((r["family"], r["noise"], first, best, at_starts))
     if stalled:
         raise RuntimeError(f"collect runs whose stored controllers do not "
                            f"beat their starts (family, noise, starts' "
-                           f"best, stored best): {stalled}")
+                           f"best, stored best, share of the stored that "
+                           f"are starts): {stalled}")
     runs = [(r["family"], r["noise"]) for r in fam.runs]
     want = [("lbfgs", 0.0)] + [(f, n) for n in (0.0, 0.05, 0.1)
                                for f in ("ppo", "nmplus", "snob")]
@@ -3203,6 +3249,368 @@ def phase_pipeline():
                           held=held)
 
 
+#: phase 16, the figures: the in-repo selfgen stores (N=5, 0 -> 2) at the
+#: paper's size, copied to a temporary directory: the characterised
+#: figures on the 1000-controller store (ten sets), fig 8 on the
+#: fcall-checkpointed 100-controller sets, fig 1 on legacy stores written
+#: from the 1000-controller one
+FIG_ROOT = "artifacts/selfgen/experiments"
+FIG_EXP, FIG_SCALING = "pipeline_selfgen", "pipeline_selfgen_scaling"
+FIG_N, FIG_OUT = 5, 2
+FIG_NOISES = np.linspace(0, 0.1, 11)
+FIG_BOOTREPS = 100
+FIG_SETS = [("lbfgs", None)] + [(a, tn) for a in ("nmplus", "snob", "ppo")
+                                for tn in ("0.0", "0.05", "0.1")]
+FIG1_NOISES = np.linspace(0, 1, 11)
+#: fig 1's noise level for joint_ecdfs (sigma 0.5 of the ten left once
+#: get_sd_results drops sigma 0)
+FIG1_ECDF_LEVEL = 4
+#: the holds' bar: card against the port's float32 plain version on the
+#: CPU, and both against the JAX package's float32 values below
+FIG_TOL = 1e-5
+#: fig 8's held checkpoint: (algo, training noise, fcall key) of .le_sh
+FIG8_CELL = ("snob", "0.05", "2000100")
+#: the JAX package's float32 values (jax_enable_x64 off) on the CPU, from
+#: copies of the two stores, by this program run from the repository root
+#: with PYTHONPATH=. and JAX_PLATFORMS=cpu (about 80 s):
+#:   import shutil, tempfile, numpy as np, jax
+#:   jax.config.update("jax_platforms", "cpu")
+#:   from code_robchar_tpu.figs import ARIMGenerator, NStochOpt
+#:   root = tempfile.mkdtemp()
+#:   for d in ("pipeline_selfgen", "pipeline_selfgen_scaling"):
+#:       shutil.copytree("artifacts/selfgen/experiments/" + d,
+#:                       f"{root}/{d}")
+#:   kw = dict(Nspin=5, inspin=0, outspin=2,
+#:             noises=np.linspace(0, 0.1, 11), bootreps=100,
+#:             filemarker=".le", seed=0, fig_dir=root + "/figs",
+#:             global_experiments_directory=root)
+#:   a = ARIMGenerator("pipeline_selfgen", numcontrollers=1000,
+#:                     use_jacobi=True, **kw)
+#:   arim, err = a.arim_curve("snob", "0.05")      # JAX_FIG5_ARIM, _ERR
+#:   s = NStochOpt("pipeline_selfgen_scaling", numcontrollers=100, **kw)
+#:   cell = s.c_dict_sh["snob"]["0.05"]
+#:   row, _ = s.get_arims("snob", "0.05", "",       # JAX_FIG8_ROW
+#:                        {"snob": {"0.05": {"2000100": cell["2000100"]}}})
+#:   print(arim.tolist(), err.tolist(), row[0].tolist())
+JAX_FIG5_ARIM = [0.018670380115509033, 0.02222132682800293,
+                 0.03210794925689697, 0.047656476497650146,
+                 0.06610137224197388, 0.08907568454742432,
+                 0.11143505573272705, 0.13332247734069824,
+                 0.16199827194213867, 0.18391108512878418,
+                 0.20717507600784302]
+JAX_FIG5_ERR = [0.0007913141162134707, 0.0010290646459907293,
+                0.002069538924843073, 0.003682431997731328,
+                0.005564894527196884, 0.007781440857797861,
+                0.009776478633284569, 0.010811696760356426,
+                0.012691951356828213, 0.013841859064996243,
+                0.015440787188708782]
+JAX_FIG8_ROW = [0.1433788686990738, 0.14856328070163727,
+                0.1638457179069519, 0.18289032578468323,
+                0.21461281180381775, 0.23918171226978302,
+                0.27957049012184143, 0.3076113760471344,
+                0.33734130859375, 0.3745536506175995,
+                0.39976418018341064]
+
+
+def _fig_kwargs(root, **kw):
+    return dict(dict(Nspin=FIG_N, inspin=0, outspin=FIG_OUT,
+                     noises=FIG_NOISES, bootreps=FIG_BOOTREPS,
+                     numcontrollers=1000, filemarker=".le", seed=0,
+                     global_experiments_directory=root), **kw)
+
+
+def _fig_stores(root):
+    import shutil
+
+    for d in (FIG_EXP, FIG_SCALING):
+        shutil.copytree(os.path.join(REPO, FIG_ROOT, d),
+                        os.path.join(root, d))
+
+
+def _finite(label, *arrays):
+    for a in arrays:
+        a = np.asarray(a, dtype=np.float64)
+        if a.size == 0 or not np.isfinite(a).all():
+            raise RuntimeError(f"{label}: {a.size} values, not all finite")
+
+
+def _fig_stage(watch, name, sync_on, fn):
+    """``fn()`` with every count set to 0 just before; returns its result
+    and kernel 1's launches, timed by the Stopwatch and ``timed``."""
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+    from code_robchar_tpu_torch.utils.trace import timed
+
+    _reset_pipeline_counts()
+    with watch.section(name), timed(name, sync_on=sync_on):
+        out = fn()
+    return out, cuda_jacobi.LAUNCHES
+
+
+def _fig_characterised(root, watch):
+    """(a): figs 3, 4, 5 and rimk on the ten sets of the N=5 store; the
+    first class fills the .mc / .mcm caches, the others reload them."""
+    import contextlib
+    import io
+
+    from code_robchar_tpu_torch import figs
+
+    kw = _fig_kwargs(root, fig_dir=os.path.join(root, "figs"))
+    probe = torch.zeros(1, device="cuda")      # timed's sync target
+    total = len(FIG_NOISES) * 1000 * FIG_BOOTREPS
+    chunks = len(FIG_SETS) * -(-total // 131072)
+
+    def fig3():
+        sim = figs.IndividualContComparisons(FIG_EXP, **kw)
+        return {s: sim._rim_bands(s[0], s[1], FIG_NOISES, sim.topk)
+                for s in FIG_SETS}
+
+    bands, fig3_n = _fig_stage(watch, "(a) fig3 _rim_bands", probe, fig3)
+    rim0 = [float(np.median(c[0])) for c, _, _ in bands.values()]
+    rim1 = [float(np.median(c[-1])) for c, _, _ in bands.values()]
+    print(f"(a) fig3 _rim_bands: {len(FIG_SETS)} sets x {total} "
+          f"Hamiltonians (N={FIG_N}, 1000 controllers, float32 on the "
+          f"card), top-k bands {bands[FIG_SETS[0]][0].shape}; median RIM at "
+          f"sigma 0 {min(rim0):.4f}..{max(rim0):.4f}, at sigma 0.1 "
+          f"{min(rim1):.4f}..{max(rim1):.4f}; kernel 1 launches {fig3_n} "
+          f"(at least {chunks}: chunks of 131072)")
+    for s, (c, u, l) in bands.items():
+        _finite(f"fig3 {s}", c, u, l)
+    if fig3_n < chunks:
+        raise RuntimeError(f"fig 3 launched kernel 1 {fig3_n} times")
+
+    def fig4():
+        sim = figs.KTRConsistency(FIG_EXP, **kw)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            taus = {s: sim.pairwise_taus(sim._rim(s[0], s[1], sim.topk))
+                    for s in FIG_SETS}
+        return taus, sim.vn_failures, buf.getvalue().count("\n")
+
+    (taus, vn, warned), fig4_n = _fig_stage(watch, "(a) fig4 pairwise_taus",
+                                            probe, fig4)
+    t0 = [float(t[0, -1]) for t in taus.values()]
+    print(f"(a) fig4 pairwise_taus: {len(taus)} tau matrices "
+          f"{taus[FIG_SETS[0]].shape}, tau(sigma 0, sigma 0.1) "
+          f"{min(t0):.4f}..{max(t0):.4f}, diagonal min "
+          f"{min(float(np.diag(t).min()) for t in taus.values()):.4f}; VN "
+          f"failures {vn} ({warned} warning lines); kernel 1 launches "
+          f"{fig4_n}")
+    for s, t in taus.items():
+        _finite(f"fig4 {s}", t)
+
+    def fig5():
+        sim = figs.ARIMGenerator(FIG_EXP, **kw)
+        return {s: sim.arim_curve(s[0], s[1]) for s in FIG_SETS}
+
+    curves, fig5_n = _fig_stage(watch, "(a) fig5 arim_curve", probe, fig5)
+    print(f"(a) fig5 arim_curve: " + "; ".join(
+        f"{a}{'' if tn is None else ' ' + tn} {v[0]:.5f} -> {v[-1]:.5f} "
+        f"(+-{e[-1]:.5f})" for (a, tn), (v, e) in curves.items())
+          + f"; kernel 1 launches {fig5_n}")
+    for s, (v, e) in curves.items():
+        _finite(f"fig5 {s}", v, e)
+        if not v[0] <= v[-1]:
+            raise RuntimeError(f"fig5 {s}: ARIM at sigma 0 {v[0]} above "
+                               f"sigma 0.1's {v[-1]}")
+
+    at = [str(x) for x in FIG_NOISES].index("0.05")
+
+    def rimk():
+        sim = figs.ExploringRIMK(FIG_EXP, **_fig_kwargs(root))
+        return sim.rim_k_tensor("ppo", noise_index=at)
+
+    rk, rimk_n = _fig_stage(watch, "(a) rimk rim_k_tensor", probe, rimk)
+    print(f"(a) rimk rim_k_tensor(ppo, noise_index={at} -> \"0.05\"): "
+          + ", ".join(f"{k} {v.shape} mean {float(v.mean()):.5f}"
+                      for k, v in rk.items())
+          + f"; kernel 1 launches {rimk_n}")
+    _finite("rimk", *rk.values())
+    if fig4_n or fig5_n or rimk_n:
+        raise RuntimeError(f"a reload launched kernel 1: fig4 {fig4_n}, "
+                           f"fig5 {fig5_n}, rimk {rimk_n}")
+    return curves, fig3_n
+
+
+def _fig8_pass(root, watch, label):
+    from code_robchar_tpu_torch import figs
+
+    def run():
+        s = figs.NStochOpt(FIG_SCALING, **_fig_kwargs(
+            root, numcontrollers=100, fig_dir=os.path.join(root, "figs")))
+        return {(marker, algo, nlvl): s.get_arims(algo, nlvl, marker, cd)
+                for marker, cd in (("nonstoch", s.c_dict_nsh),
+                                   ("", s.c_dict_sh))
+                for algo in cd for nlvl in cd[algo]}
+
+    return _fig_stage(watch, label, torch.zeros(1, device="cuda"), run)
+
+
+def _fig8(root, watch):
+    """(b): fig 8's ARIMs over every (marker, algo, nlvl) of the scaling
+    store, then a second pass that must load every pickle."""
+    start = time.perf_counter()
+    rows, n = _fig8_pass(root, watch, "(b) fig8 get_arims")
+    wall = time.perf_counter() - start
+    ckpts = sum(len(a) for a, _ in rows.values())
+    print(f"(b) fig8 get_arims: {len(rows)} (marker, algo, nlvl) cells, "
+          f"{ckpts} checkpoints of 100 controllers x {len(FIG_NOISES)} x "
+          f"{FIG_BOOTREPS} = 110000 Hamiltonians; kernel 1 launches {n} "
+          f"(one a checkpoint); {wall:.3f} s, "
+          f"{ckpts * 110000 / wall:.1f} Hamiltonians/s; mean ARIM of the "
+          f"last checkpoint " + ", ".join(
+              f"{m or 'stoch'} {a} {nl} {arims[-1].mean():.4f}"
+              for (m, a, nl), (arims, _) in rows.items()
+              if nl == "0.05" and len(arims)))
+    for cell, (arims, _) in rows.items():
+        if len(arims):
+            _finite(f"fig8 {cell}", arims)
+    if n != ckpts:
+        raise RuntimeError(f"fig 8: {n} launches for {ckpts} checkpoints")
+    start = time.perf_counter()
+    again, n2 = _fig8_pass(root, watch, "(b) fig8 pickles")
+    same = list(again) == list(rows) and all(
+        np.array_equal(again[c][0], rows[c][0]) and again[c][1] == rows[c][1]
+        for c in rows)
+    print(f"(b) fig8 second pass: every pickle loaded, equal {same}; "
+          f"kernel 1 launches {n2}; {time.perf_counter() - start:.3f} s")
+    if n2 or not same:
+        raise RuntimeError("fig 8's second pass swept or changed a cell")
+    return rows, n
+
+
+def _fig1(root, watch):
+    """(c): fig 1 on legacy stores written from the N=5 store."""
+    from code_robchar_tpu_torch import figs
+    from code_robchar_tpu_torch.utils import io
+
+    store = io.load_json(os.path.join(
+        root, FIG_EXP, f"ppo_spin_{FIG_N}_0-{FIG_OUT}_c_1000.le"))
+    legacy = os.path.join(root, "noisy_analysis")
+    for algo in ("lbfgs", "ppo"):
+        io.dump_json({algo: store[algo]}, os.path.join(
+            legacy, f"{algo}_spin_{FIG_N}_0-{FIG_OUT}_in"))
+
+    def run():
+        ex = figs.CDFAreaExample(legacy, spin=FIG_N, inspin=0,
+                                 outspin=FIG_OUT, bootreps=FIG_BOOTREPS,
+                                 controllers=100)
+        return ex, ex.get_sd_results(FIG1_NOISES)
+
+    (ex, (noises, fl, fp)), n = _fig_stage(
+        watch, "(c) fig1 get_sd_results", torch.zeros(1, device="cuda"), run)
+    xs, ca, cb = ex.joint_ecdfs(fl[FIG1_ECDF_LEVEL, 0], fp[FIG1_ECDF_LEVEL, 0])
+    print(f"(c) fig1 get_sd_results: lbfgs and ppo {ex.rlc_index!r}, "
+          f"{fl.shape} {fl.dtype} each over sigma {noises[0]:.1f}.."
+          f"{noises[-1]:.1f}; median fidelity lbfgs {np.median(fl[0]):.4f} "
+          f"-> {np.median(fl[-1]):.4f}, ppo {np.median(fp[0]):.4f} -> "
+          f"{np.median(fp[-1]):.4f}; kernel 1 launches {n}; joint_ecdfs at "
+          f"sigma {noises[FIG1_ECDF_LEVEL]:.1f}, controller 0: "
+          f"{xs.shape[0]} points, ECDFs at the middle {ca[len(ca) // 2]:.3f}"
+          f" / {cb[len(cb) // 2]:.3f}")
+    _finite("fig1", fl, fp, xs, ca, cb)
+    if ex.rlc_index != "0.05" or fl.shape != (10, 100, FIG_BOOTREPS) or \
+            fp.shape != fl.shape or n < 2:
+        raise RuntimeError(f"fig 1: {ex.rlc_index} {fl.shape} {n}")
+    if (np.diff(ca) < 0).any() or (np.diff(cb) < 0).any():
+        raise RuntimeError("fig 1's joint ECDFs are not monotone")
+    return n
+
+
+def _fig_holds(root, curves, rows):
+    """(d): the fig 8 row and the fig 5 curve against the port's float32
+    plain version on the CPU and the JAX package's float32 values."""
+    from code_robchar_tpu_torch import figs
+
+    cpu = os.path.join(root, "cpu")
+    _fig_stores(cpu)
+    algo, nlvl, key = FIG8_CELL
+    arims, keys = rows["", algo, nlvl]
+    card8 = arims[keys.index(key)]
+    s = figs.NStochOpt(FIG_SCALING, **_fig_kwargs(
+        cpu, numcontrollers=100, fig_dir=os.path.join(cpu, "figs"),
+        device="cpu", dtype=torch.float32))
+    start = time.perf_counter()
+    cpu8 = s.get_arims(algo, nlvl, "", {algo: {nlvl: {
+        key: s.c_dict_sh[algo][nlvl][key]}}})[0][0]
+    cpu8_s = time.perf_counter() - start
+    card5 = curves["snob", "0.05"][0]
+    start = time.perf_counter()
+    a = figs.ARIMGenerator(FIG_EXP, **_fig_kwargs(
+        cpu, fig_dir=os.path.join(cpu, "figs"), device="cpu",
+        dtype=torch.float32))
+    cpu5, cpu5_err = a.arim_curve("snob", "0.05")
+    cpu5_s = time.perf_counter() - start
+    worst = 0.0
+    for label, card, plain, ref in (
+            (f"fig8 ARIM row {FIG8_CELL}", card8, cpu8, JAX_FIG8_ROW),
+            ("fig5 ARIM curve (snob, 0.05)", card5, cpu5, JAX_FIG5_ARIM)):
+        d_cpu = float(np.abs(card - plain).max())
+        d_jax = float(np.abs(card - np.asarray(ref)).max())
+        d_cpu_jax = float(np.abs(plain - np.asarray(ref)).max())
+        worst = max(worst, d_cpu, d_jax, d_cpu_jax)
+        print(f"(d) {label}: max|card - cpu f32 plain| {d_cpu:.3e}, "
+              f"max|card - JAX f32| {d_jax:.3e}, max|cpu - JAX f32| "
+              f"{d_cpu_jax:.3e} (tol {FIG_TOL:g}; values "
+              f"{card[0]:.6f}..{card[-1]:.6f})")
+    card5_err = curves["snob", "0.05"][1]
+    print(f"  fig5 bootstrap std (not held): max|card - cpu| "
+          f"{float(np.abs(card5_err - cpu5_err).max()):.3e}, max|card - "
+          f"JAX| {float(np.abs(card5_err - np.asarray(JAX_FIG5_ERR)).max()):.3e}"
+          f"; the CPU's plain version: fig8 row {cpu8_s:.2f} s (110000 "
+          f"Hamiltonians), fig5 curve {cpu5_s:.2f} s (1.1M)")
+    if not worst <= FIG_TOL:
+        raise RuntimeError(f"the figure holds miss {FIG_TOL}: {worst}")
+    return worst
+
+
+def _fig_checkpoint(root):
+    """(e): one PPO actor-critic's parameters and Adam states round-trip
+    through utils.checkpoint onto the card, bit-equal."""
+    from code_robchar_tpu_torch.models import PPO_en
+    from code_robchar_tpu_torch.ops import prng
+    from code_robchar_tpu_torch.utils import checkpoint
+
+    ppo = PPO_en(FIG_N, 0, FIG_OUT, testing=True, num_agents=16)
+    st = ppo._init_agent(prng.split(prng.key(3), 16))
+    path = checkpoint.save_state(os.path.join(root, "ckpt", "agent"), st)
+    back = checkpoint.restore_state(path, template=st)
+    pairs = []
+    checkpoint._map(lambda t, like: pairs.append((t, like)) or t, back, st)
+    equal = type(back) is type(st) and len(pairs) > 10 and all(
+        t.device == like.device and t.dtype == like.dtype and
+        torch.equal(t, like) for t, like in pairs)
+    print(f"(e) checkpoint: PPO_en(N={FIG_N}, 16 agents) params, pi and vf "
+          f"Adam states: {len(pairs)} tensors, "
+          f"{sum(t.numel() * t.element_size() for t, _ in pairs)} bytes, "
+          f"{os.path.getsize(path)} on disk; restored onto "
+          f"{sorted({str(t.device) for t, _ in pairs})}, bit-equal {equal}")
+    if not equal:
+        raise RuntimeError("the checkpoint round trip changed the state")
+
+
+def phase_figures():
+    import shutil
+    import tempfile
+
+    from code_robchar_tpu_torch.utils.trace import Stopwatch
+
+    root = tempfile.mkdtemp(prefix="robchar_figures_")
+    watch = Stopwatch()
+    try:
+        _fig_stores(root)
+        curves, herm = _fig_characterised(root, watch)
+        rows, fig8_n = _fig8(root, watch)
+        herm += fig8_n + _fig1(root, watch)
+        worst = _fig_holds(root, curves, rows)
+        _fig_checkpoint(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("  stopwatch: " + watch.report().replace("\n", "; "))
+    print(f"  kernel 1 launches in phase 16: {herm}")
+    return herm, dict(fig_worst=worst, fig8_s=watch.totals[
+        "(b) fig8 get_arims"])
+
+
 def _run(phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -3227,6 +3635,7 @@ def main():
     adam_snob_launches, adam_snob = _run(phase_adam_snob, zoo_err)
     sp_launches, sp = _run(phase_single_point)
     pipe_launches, pipe = _run(phase_pipeline)
+    fig_launches, fig = _run(phase_figures)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -3263,6 +3672,7 @@ def main():
     for name, held in pipe["held"].items():
         ppo_err[name] = max(ppo_err[name], held)
     launches += pipe_launches["herm_jacobi_fidelity"]
+    launches += fig_launches     # phase 16's: the figures' sweeps
     zoo_err["sym_jacobi_amp"] = max(zoo_err["sym_jacobi_amp"], amp_err)
     kernels = [
         entry("herm_jacobi_fidelity",
@@ -3306,7 +3716,9 @@ def main():
           f"ms an epoch, peak {sp['peak_gib']:.3f} GiB); pipeline (N=7) "
           f"collect {pipe['collect_s']:.2f} s at {PIPE_BUDGET} fcalls a run, "
           f"characterise {pipe['characterise_s']:.3f} s for "
-          f"{len(PIPE_SETS)} sets of 1.1M Hamiltonians; card {smi}")
+          f"{len(PIPE_SETS)} sets of 1.1M Hamiltonians; figures (N=5) "
+          f"fig 8 {fig['fig8_s']:.2f} s, holds within "
+          f"{fig['fig_worst']:.2e}; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -325,8 +325,12 @@ class MCDataSim:
         """Host API of mcsim.py:267-275, vectorised on the device: the
         resamples of ``prng.key(seed + 1)`` (the JAX package's
         ``jax.random.key(seed + 1)``) through ``summarystatistic``, a
-        trailing-axis torch reduction."""
-        sample = torch.as_tensor(np.asarray(sample), device=self.device)
+        trailing-axis torch reduction.  The sample is taken in ``dtype``,
+        as the JAX package takes it in its precision (float32 draws int32
+        indices, float64 int64: the same resamples as the JAX package's
+        at either)."""
+        sample = torch.as_tensor(np.asarray(sample), device=self.device,
+                                 dtype=self.dtype)
         val = engine.bootstrap_statistic_std(
             prng.key(self.seed + 1), sample, summarystatistic, bootsamples)
         return float(val)

@@ -19,6 +19,17 @@ N, C, B = 4, 5, 16
 NOISES = (0.0, 0.05, 0.1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def lattice():
     rng = np.random.default_rng(21)

@@ -34,6 +34,17 @@ CSRC = os.path.join(REPO, "code_robchar_tpu_torch", "csrc")
 SIZES = range(2, 11)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spins(n):
     return [(0, n - 1), (1, min(2, n - 1))]
 

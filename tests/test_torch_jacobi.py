@@ -16,6 +16,17 @@ from code_robchar_tpu.ops import realform as jrf
 from code_robchar_tpu_torch.ops import cuda_jacobi, realform
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _hermitian_lanes(rng, n, b, dtype):
     a = rng.normal(size=(b, n, n))
     sym = (a + a.transpose(0, 2, 1)) / 2

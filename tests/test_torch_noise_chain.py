@@ -15,6 +15,17 @@ from code_robchar_tpu.ops import noise as jnoise
 from code_robchar_tpu_torch.ops import chain, noise, prng
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("topo", ["chain", "ring"])
 @pytest.mark.parametrize("heisenberg", [False, True])
 @pytest.mark.parametrize("n", [3, 6])

@@ -38,6 +38,17 @@ F64 = dict(device="cpu", dtype=torch.float64)
 EPOCH = (16, 0.2, 3e-3, 1e-3, 1000, 2, 3, 0.01)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f64(tree):
     return jax.tree.map(
         lambda x: x.astype(jnp.float64)

@@ -43,6 +43,17 @@ F32 = np.float32
 N, H, IN, OUT, BMAX, MAXTIME, SWEEPS = 4, 16, 0, 3, 10.0, 30.0, 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rollout_inputs(a_cnt, t_len, seed):
     rng = np.random.default_rng(seed)
     d = N + 1

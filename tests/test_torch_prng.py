@@ -14,6 +14,17 @@ from code_robchar_tpu_torch.ops import prng
 SEEDS = [0, 1, 7, 12345, 2**32 + 3]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _words(k):
     return np.asarray(jax.random.key_data(k)).astype(np.int64)
 

@@ -46,6 +46,17 @@ K = 64
 # the Pallas bodies, copied from the reference --------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_probe(streams, k):
     """roofline.py:257-276, interpret=True."""
     def kernel(x_in, y_out, scr):

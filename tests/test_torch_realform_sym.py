@@ -19,6 +19,17 @@ from code_robchar_tpu.ops import realform as jrf
 from code_robchar_tpu_torch.ops import cuda_jacobi, realform
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sym_lanes(rng, n, b, dtype):
     a = rng.normal(size=(n, n, b))
     return ((a + a.transpose(1, 0, 2)) / 2).astype(dtype), \

@@ -37,6 +37,17 @@ from code_robchar_tpu_torch.ops import chain, noise, prng
 F64 = dict(dtype=torch.float64, device="cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _keys(key, k):
     """(JAX keys, port keys) of split(key, k)."""
     jk = jax.random.split(key, k)

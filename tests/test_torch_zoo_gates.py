@@ -20,6 +20,17 @@ F64 = dict(dtype=torch.float64, device="cpu")
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "artifacts")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, where torch's default of a thread a core oversubscribes
+    the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(jcls, cls, n=4, out=2, **kw):
     return (jcls(n, 0, out, testing=True, **kw),
             cls(n, 0, out, testing=True, **kw, **F64))
