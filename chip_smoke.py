@@ -185,10 +185,11 @@ Phases:
     lanes; ps per element per step) as JSON lines, and both kernels timed
     for the kernels line beside their plain versions and bounds.
 11. shot noise (fid_noisy, draws 10) on the card: the N=7 NM and L-BFGS
-    pools (NOISY_POOL restarts, the noiseless pools' size; a smaller value
-    is printed as a cut) in the plain and the adaptive protocol (adp_tol
-    0.05), two PPO epochs at N=7,
-    1024 agents, T=500 on the per-step loop (the fused rollout gated off);
+    pools (NOISY_POOL restarts, half the noiseless pools' size since phases
+    17 and 18 were added; the cut is printed) in the plain and the
+    adaptive protocol (adp_tol 0.05), NOISY_PPO_EPOCHS PPO epochs (one
+    since phases 17 and 18 were added; two before) at N=7, 1024 agents,
+    T=500 on the per-step loop (the fused rollout gated off);
     restarts/s and env-steps/s, the seconds the draws take (ms a trial, a
     round, an epoch), the amplitude kernel's launches, which must rise on
     every path; fidelities and rewards must be whole shot counts in the
@@ -251,8 +252,8 @@ Phases:
     points), 36 calls must raise the best fidelity with no restart.  Then
     card against CPU at N=4 (8 streams, one regular simplex each on both
     devices): over the first 40 calls 7 of 8 within 1e-3; whole runs of
-    300 calls apart beside the witness, the CPU against itself with the
-    simplex one ulp up.  (c) PPO
+    SP_WHOLE_CALLS calls (150; 300 before phases 17 and 18) apart beside
+    the witness, the CPU against itself with the simplex one ulp up.  (c) PPO
     at bench.py's configuration with the Wasserstein value targets (N=7,
     1024 agents, T=500, ham_noisy, rollout_sweeps 4, 30 bootstrap reps):
     one warm-up and two timed epochs, env-steps/s, the epoch split by CUDA
@@ -309,7 +310,7 @@ Phases:
     ``python -m code_robchar_tpu_torch.exp.drivers`` with no command must
     exit 2 with its usage line, and a process that imports the drivers
     and datasim must hold no jax and nothing of the JAX package.
-16. the figures, run after 15 and before the kernels line of 14 (N=5,
+16. the figures, run after 15 and before 17 and the kernels line of 14 (N=5,
     0 -> 2, float32 on the card, noises linspace(0, 0.1, 11), seed 0), on
     copies of the in-repo selfgen stores in a temporary directory; each
     stage with every count set to 0 just before, timed by the port's
@@ -334,11 +335,52 @@ Phases:
     sigma 0 at most its value at sigma 0.1.  (e) A PPO actor-critic's
     parameters and Adam states through utils.checkpoint, restored onto the
     card bit-equal.
+17. the exact-SNOBFIT adapter and the env's reference methods, after 16
+    and before the kernels line (N=7, 0 -> 6, float32 on the card).
+    SNOBSkquant.run() on the vendored engine (models/snobfit_core.py) in
+    budget mode: SNOBFIT_RESTARTS restarts of budget SNOBFIT_BUDGET,
+    landscape exploration, fid_threshold 0, noiseless and then ham-noisy
+    (sigma 0.05), each with the four zoo kernels' counts set to 0 just
+    before and read just after.  Each run must reach its budget
+    (func_calls = restarts x budget); the lane-group amplitude kernel must
+    be launched once a scored batch (n + 6 = 14 points in SNOBFIT's 8
+    dimensions, fewer at a restart's end, and the start alone) plus once a
+    restart for the noiseless re-evaluation, and no other kernel.
+    Noiseless, the best noiseless fidelity (float64, the CPU plain version)
+    of the stored controllers must beat that of the restarts' starts;
+    under ham noise the search must leave its starts (under half the
+    stored at a start).  Every amplitude launch of the runs is recorded and
+    held afterwards against the plain version on the card (amplitude
+    <= 3e-5, phase 4's bar).  Prints restarts/s, the scored batches, the
+    seconds spent scoring them and the host's share of the wall (SNOBFIT's
+    suggest is host numpy).  Then Environment(device="cuda"):
+    structured_perturabation on the card, Hermitian and real off the
+    diagonal; state_vector, input_state, output_state.
+18. the mesh on the card, after 17 (parallel/mesh.py; a MESH_ENTRIES-entry
+    mesh that repeats cuda:0, the number of CUDA devices printed; the
+    blocks run one after another from the host), each stage with every
+    count set to 0 just before and read just after; every wall host-paced,
+    beside the unsharded one.  (a) sharded_mc_metrics at the MC headline's
+    full width (10,000 controllers, 2,500 a block, x 11 x 100, key(1)): all
+    15 tensors bit-equal to phase 3's key(1) run and the same
+    rim_checksum.  (b) sharded_run_batch for L-BFGS and NM on ZOO_POOL
+    restarts (keys from key(31), key(32)): twice, bit-equal; on a one-entry
+    mesh bit-equal to _run_batch; the mean true fidelity within 5e-2 of the
+    unsharded pool's.  (c) PPO_en at N=7, PPO_AGENTS agents (a quarter a
+    block), T=500, ham_noisy, mesh= the entries: two epochs through run(),
+    the rollout, bf16 critic and one-thread amplitude kernels once a block
+    an epoch; the rollout and bf16 critic kernels first held against their
+    plain versions at a block's shape (A=256) at phase 7's bars; the same
+    run unsharded beside it.  (d) Adam with ADAM_STREAMS streams, one
+    1000-step segment sharded: the lane-group gradient kernel once a step
+    and block, the lane-group amplitude kernel once a step and block plus
+    the true fidelities; its kernels held at a block's 16 streams first.
+    (e) parallel/dryrun.dryrun_multichip on a MESH_ENTRIES-entry mesh.
 14. the kernels JSON line (all ten kernels: launches on their paths, the
     max abs error against the plain version, ms and plain_ms from CUDA
-    events (kernel 1's launches on phases 3, 15 and 16, the four zoo kernels'
-    on the paths of phases 5, 8, 12, 13 and 15, the rollout and bf16
-    critic kernels' on phases 8, 13 and 15, timed
+    events (kernel 1's launches on phases 3, 15, 16 and 18, the four zoo
+    kernels' on the paths of phases 5, 8, 12, 13, 15, 17 and 18, the
+    rollout and bf16 critic kernels' on phases 8, 13, 15 and 18, timed
     at the batch of their path: 9216 and
     1024 for the lane-group ones, 131072 for the one-thread gradient
     kernel, the PPO epoch's 512,000 for the one-thread amplitude kernel),
@@ -646,17 +688,31 @@ def phase_kernel():
     return worst, ms, plain_ms, lib_ms, bound
 
 
-def phase_main_path():
-    from code_robchar_tpu_torch.mc import engine
-    from code_robchar_tpu_torch.ops import chain, cuda_jacobi, prng
+MC_N, MC_CONTROLLERS, MC_NOISES, MC_BOOTREPS = 7, 10_000, 11, 100
 
-    n, n_ctrl, n_noise, bootreps = 7, 10_000, 11, 100
-    total = n_ctrl * n_noise * bootreps
+
+def _mc_inputs():
+    """The MC headline's drift, controllers (numpy seed 0) and noise
+    levels, float32."""
+    from code_robchar_tpu_torch.ops import chain
+
+    n, n_ctrl = MC_N, MC_CONTROLLERS
     rng = np.random.default_rng(0)
     h0 = chain.xx_hamiltonian_real(n, dtype=torch.float32)
     ctrl = np.column_stack([rng.uniform(-10, 10, (n_ctrl, n)),
                             rng.uniform(0, 30, n_ctrl)]).astype(np.float32)
-    noises = np.linspace(0, 0.1, n_noise).astype(np.float32)
+    noises = np.linspace(0, 0.1, MC_NOISES).astype(np.float32)
+    return h0, ctrl, noises
+
+
+def phase_main_path():
+    from code_robchar_tpu_torch.mc import engine
+    from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+
+    n, n_ctrl, n_noise, bootreps = MC_N, MC_CONTROLLERS, MC_NOISES, \
+        MC_BOOTREPS
+    total = n_ctrl * n_noise * bootreps
+    h0, ctrl, noises = _mc_inputs()
     kwargs = dict(complex_offdiag=True, alpha=0.05, device="cuda")
 
     def run(k):
@@ -709,7 +765,7 @@ def phase_main_path():
         if err > TOL_SLICE:
             raise RuntimeError(f"main path disagrees with the f64 plain "
                                f"path on {name!r}: {err}")
-    return launches, wall, total / wall, checksum
+    return launches, wall, total / wall, checksum, first
 
 
 def _sym_cases(rng, n, b):
@@ -1884,8 +1940,12 @@ def phase_probes():
                            (tanh_ms, tanh_plain, tanh_bound))}
 
 
-#: restarts of the shot-noise phase's zoo pools (the width stays N = 7)
-NOISY_POOL = ZOO_POOL
+#: restarts of the shot-noise phase's zoo pools (the width stays N = 7):
+#: ZOO_POOL until phases 17 and 18 were added, half of it since, to keep
+#: the whole run near half its limit
+NOISY_POOL = ZOO_POOL // 2
+#: the shot-noise phase's PPO epochs: 2 until phases 17 and 18 were added
+NOISY_PPO_EPOCHS = 1
 #: the largest share of binomial draws on the card that may differ from the
 #: same call on the CPU
 CARD_CPU_SHARE = 1e-3
@@ -2017,7 +2077,7 @@ def phase_shot_noise():
     before = _amp_counts()
     walls = []
     with _DrawClock() as clock:
-        for _ in range(2):
+        for _ in range(NOISY_PPO_EPOCHS):
             start = time.perf_counter()
             st, out = epoch_fn(st)
             rew = out.rewards.cpu().numpy()
@@ -2025,11 +2085,13 @@ def phase_shot_noise():
     used = _amp_counts() - before
     rate = PPO_AGENTS * PPO_STEPS / statistics.mean(walls)
     print(f"noisy ppo: N=7 {PPO_AGENTS} agents x {PPO_STEPS} steps, draws "
-          f"10, per-step loop: epochs {walls} s, {rate:.1f} env-steps/s; "
+          f"10, per-step loop, {NOISY_PPO_EPOCHS} epoch(s) (cut from 2 to "
+          f"fit the run's time): epochs {walls} s, {rate:.1f} env-steps/s; "
           f"amplitude kernel launches {used}; shot draws "
-          f"{clock.seconds / 2 * 1e3:.1f} ms an epoch in "
-          f"{clock.calls // 2} calls; best reward {rew.max():.1f}")
-    if used < 2 * PPO_STEPS or not np.isfinite(rew).all() or \
+          f"{clock.seconds / NOISY_PPO_EPOCHS * 1e3:.1f} ms an epoch in "
+          f"{clock.calls // NOISY_PPO_EPOCHS} calls; best reward "
+          f"{rew.max():.1f}")
+    if used < NOISY_PPO_EPOCHS * PPO_STEPS or not np.isfinite(rew).all() or \
             not np.allclose(rew * 10, np.round(rew * 10), atol=1e-5):
         raise RuntimeError("the noisy PPO epoch missed the amplitude kernel "
                            "or its rewards are not shot counts")
@@ -2262,9 +2324,10 @@ def phase_adam_snob(worst):
 #: targets held against the CPU, ngd's steps
 SP_POINTS = 64
 SP_NM_CALLS = 600
-#: objective calls of the whole runs of the N=4 card-vs-CPU hold (~75
-#: iterations; its CPU runs lead the phase's time)
-SP_WHOLE_CALLS = 300
+#: objective calls of the whole runs of the N=4 card-vs-CPU reading (~37
+#: iterations; its CPU runs lead the phase's time): 300 until phases 17
+#: and 18 were added
+SP_WHOLE_CALLS = 150
 SP_WASS_REPS = 30
 SP_WASS_HELD = 4096
 SP_NGD_STEPS = 200
@@ -2729,9 +2792,10 @@ def phase_single_point():
 #: phase 15, the pipeline: the collect's fcall budget a run, cut from the
 #: paper's 1,000,000 (scripts/get_paper_data.sh:14) to keep the whole run
 #: near half its limit: PPO runs one agent under Experiment, ~0.1 s a
-#: 500-step epoch on the card, so ~11 s a noise level at this budget (the
-#: runs' walls and rates are printed); 100,000 until phase 16 was added
-PIPE_BUDGET = 50_000
+#: 500-step epoch on the card, so ~6 s a noise level at this budget (the
+#: runs' walls and rates are printed); 100,000 until phase 16 was added,
+#: 50,000 until phases 17 and 18 were
+PIPE_BUDGET = 25_000
 PAPER_BUDGET = 1_000_000
 PIPE_N, PIPE_OUT, PIPE_CONTROLLERS = 7, 6, 1000
 PIPE_NOISES = np.linspace(0, 0.1, 11)
@@ -3611,6 +3675,372 @@ def phase_figures():
         "(b) fig8 get_arims"])
 
 
+SNOBFIT_RESTARTS, SNOBFIT_BUDGET = 16, 300
+
+
+class _SnobfitRecorder:
+    """Stands in for SNOBSkquant's engine namespace: keeps each restart's
+    start and history, the scored batches' sizes and the seconds spent
+    scoring them (launches, the copy back, the key split)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.starts, self.batches, self.score_s = [], [], 0.0
+
+    def minimize(self, objective, x0, objective_batch=None, **kw):
+        def scored(xs):
+            start = time.perf_counter()
+            vals = objective_batch(xs)
+            self.score_s += time.perf_counter() - start
+            self.batches.append(len(xs))
+            return vals
+        self.starts.append(np.asarray(x0, dtype=float))
+        return self.engine.minimize(objective, x0, objective_batch=scored,
+                                    **kw)
+
+
+def _snobfit_run(label, worst, **kw):
+    """SNOBSkquant.run() at N=7 on the vendored engine, budget mode
+    (SNOBFIT_RESTARTS restarts of SNOBFIT_BUDGET), with the four zoo
+    kernels' counts set to 0 just before and read just after; then every
+    amplitude launch of the run held against the plain version on the
+    card.  Returns (the optimizer, the recorder, the wall, the counts)."""
+    from code_robchar_tpu_torch.models import SNOBSkquant
+    from code_robchar_tpu_torch.ops import cuda_jacobi, realform
+
+    budget = SNOBFIT_RESTARTS * SNOBFIT_BUDGET
+    opt = SNOBSkquant(7, 0, 6, testing=True, fid_threshold=0.0,
+                      run_until_told_to_stop=True,
+                      run_until_completion_its=budget,
+                      landscape_exploration=True, save_topc=100,
+                      budget=SNOBFIT_BUDGET, backend="vendored",
+                      device="cuda", dtype=torch.float32, **kw)
+    if opt.backend_name != "vendored":
+        raise RuntimeError(f"SNOBSkquant resolved {opt.backend_name}")
+    rec = opt._skq = _SnobfitRecorder(opt._skq)
+    held = []
+    entry = cuda_jacobi.transfer_amp_sym
+
+    def recorded(a, t, i, o, sweeps=None):
+        phr, phi = entry(a, t, i, o, sweeps)
+        held.append((a.clone(), t.clone(), i, o, sweeps, phr, phi))
+        return phr, phi
+
+    cuda_jacobi.transfer_amp_sym = recorded
+    _reset_zoo_counts()
+    try:
+        start = time.perf_counter()
+        opt.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    finally:
+        cuda_jacobi.transfer_amp_sym = entry
+    used = _zoo_counts()
+
+    # every launch of the run against the plain version on the card, at
+    # phase 4's bar; the run's batches in one plain call a shape group
+    err = 0.0
+    for (i, o, sweeps) in {(h[2], h[3], h[4]) for h in held}:
+        part = [h for h in held if h[2:5] == (i, o, sweeps)]
+        a = torch.cat([h[0] for h in part], dim=-1)
+        t = torch.cat([h[1] for h in part])
+        pr, pi = realform.transfer_amp_sym_lanes(a, t, i, o, sweeps)
+        kr = torch.cat([h[5] for h in part])
+        ki = torch.cat([h[6] for h in part])
+        if not bool(torch.isfinite(kr).all() & torch.isfinite(ki).all()):
+            raise RuntimeError(f"snobfit {label}: a non-finite amplitude")
+        err = max(err, float((kr - pr).abs().max()),
+                  float((ki - pi).abs().max()))
+    ok = err <= TOL_KERNEL
+    print(f"snobfit {label}: every amplitude launch of the run ({len(held)}: "
+          f"{sum(h[0].shape[-1] for h in held)} matrices) against the plain "
+          f"version on the card: max abs {err:.3e} (tol {TOL_KERNEL:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"snobfit {label}: the amplitude kernel "
+                           f"disagrees with its plain version")
+    worst["sym_jacobi_amp_group"] = max(worst["sym_jacobi_amp_group"], err)
+    return opt, rec, wall, used
+
+
+def phase_snobfit(worst):
+    """Phase 17: the exact-SNOBFIT adapter and the env's reference methods
+    on the card."""
+    from code_robchar_tpu_torch.models.env import Environment
+    from code_robchar_tpu_torch.ops import cuda_jacobi
+
+    launches = dict.fromkeys(AMP_KERNELS + GRAD_KERNELS, 0)
+    # SNOBFIT suggests n + 6 points a round in its n = 8 dimensions
+    route = cuda_jacobi.amp_route(7, 8 + 6)
+    out = {}
+    for label, kw in (("noiseless", {}),
+                      ("ham_noisy sigma 0.05", dict(ham_noisy=True,
+                                                    noise=0.05))):
+        opt, rec, wall, used = _snobfit_run(label, worst, **kw)
+        r = opt.record
+        n_batches = len(rec.batches)
+        sizes = sorted(set(rec.batches))
+        host_s = wall - rec.score_s
+        stored = r.get("controllers") or []
+        h0 = opt.HH.cpu()
+        best_start = float(_true_fids(h0, np.asarray(rec.starts), (0, 6))
+                           .max())
+        best_stored = float(_true_fids(h0, np.asarray(stored), (0, 6)).max()
+                            ) if stored else 0.0
+        share = _share_of_starts(stored, rec.starts)
+        print(f"snobfit {label}: N=7, {len(rec.starts)} restarts of budget "
+              f"{SNOBFIT_BUDGET}, landscape exploration: {wall:.2f} s, "
+              f"{len(rec.starts) / wall:.2f} restarts/s; func_calls "
+              f"{r['func_calls']}; scored batches {n_batches} (sizes "
+              f"{sizes}), {sum(rec.batches)} points; scoring "
+              f"{rec.score_s:.2f} s, host (SNOBFIT's numpy) {host_s:.2f} s, "
+              f"host share {host_s / wall:.3f}; launches {used}; best_fid "
+              f"{r['best_fid']!r}; stored {len(stored)}, best noiseless "
+              f"fidelity stored {best_stored:.6f} against the starts' "
+              f"{best_start:.6f}, share of stored at a start {share:.3f}")
+        _expect_counts(f"snobfit {label}", used,
+                       [(route, n_batches + len(rec.starts))])
+        if r["func_calls"] != SNOBFIT_RESTARTS * SNOBFIT_BUDGET or \
+                len(rec.starts) != SNOBFIT_RESTARTS:
+            raise RuntimeError(f"snobfit {label}: the run did not reach its "
+                               f"budget")
+        if used[route] < n_batches or max(rec.batches) != 8 + 6:
+            raise RuntimeError(f"snobfit {label}: fewer launches than "
+                               f"scored batches")
+        if kw:
+            if share >= 0.5:
+                raise RuntimeError(f"snobfit {label}: the search never left "
+                                   f"its starts")
+        elif not best_stored > best_start:
+            raise RuntimeError(f"snobfit {label}: the stored controllers do "
+                               f"not beat their starts")
+        for k, v in used.items():
+            launches[k] += v
+        out[label] = len(rec.starts) / wall
+
+    env = Environment(7, 0, 6, device="cuda")
+    z = env.structured_perturabation(0.05)
+    sv = env.state_vector(3)
+    ok = (z.device.type == "cuda" and z.shape == (7, 7) and
+          torch.equal(z, z.mH) and float(z.imag.abs().max()) == 0.0 and
+          float(z.abs().max()) > 0.0 and sv.shape == (7,) and sv[3] == 1.0
+          and float(np.abs(sv).sum()) == 1.0 and
+          env.input_state()[0, 0] == 1 and env.output_state()[6, 6] == 1 and
+          float(env.input_state().sum() + env.output_state().sum()) == 2.0)
+    print(f"env reference methods on the card: structured_perturabation "
+          f"{tuple(z.shape)} {z.dtype} on {z.device}, Hermitian, real off "
+          f"the diagonal, max |z| {float(z.abs().max()):.4f}; state_vector, "
+          f"input_state, output_state {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the env's reference methods failed on the card")
+    return launches, out
+
+
+MESH_ENTRIES = 4
+
+
+def _sharded_pool(mesh, cls, seed):
+    """One N=7 pool of ZOO_POOL restarts: the unsharded batch, the batch
+    sharded over ``mesh`` twice, and over a one-entry mesh; each compared
+    as the JAX package's tests/test_parallel.py does.  Returns the walls
+    (unsharded, sharded) and the counts of the sharded runs."""
+    from code_robchar_tpu_torch.ops import prng
+    from code_robchar_tpu_torch.parallel import Mesh, sharded_run_batch
+
+    opt = _zoo_optimizer(cls)
+    x0s = torch.as_tensor(opt.init_points(ZOO_POOL), dtype=torch.float32,
+                          device="cuda")
+    keys = prng.split(prng.key(seed), ZOO_POOL)
+
+    def timed(fn):
+        start = time.perf_counter()
+        res = fn()
+        float(res.fid.sum())
+        return res, time.perf_counter() - start
+
+    ref, wall0 = timed(lambda: opt._run_batch(x0s, keys))
+    _reset_pipeline_counts()
+    got, wall = timed(lambda: sharded_run_batch(mesh, opt, x0s, keys))
+    stats = dict(opt.stats)
+    again, wall2 = timed(lambda: sharded_run_batch(mesh, opt, x0s, keys))
+    used = _pipeline_counts()
+    one, _ = timed(lambda: sharded_run_batch(Mesh(["cuda:0"]), opt, x0s,
+                                             keys))
+    same = all(torch.equal(getattr(got, k), getattr(again, k))
+               for k in ("x", "fid", "true_fid", "nfev", "nit"))
+    one_same = all(torch.equal(getattr(one, k), getattr(ref, k))
+                   for k in ("x", "fid", "true_fid", "nfev", "nit"))
+    gap = abs(float(got.true_fid.mean() - ref.true_fid.mean()))
+    fid = got.fid.cpu().numpy()
+    ok = (same and one_same and gap < 5e-2 and np.isfinite(fid).all() and
+          fid.min() >= -1e-5 and fid.max() <= 1 + 1e-5 and
+          int(got.nfev.min()) > 0)
+    moved = int((got.x != ref.x).any(1).sum())
+    print(f"mesh (b) {cls.name}: N=7 pool {ZOO_POOL} over {mesh.size} "
+          f"entries ({ZOO_POOL // mesh.size} a block): sharded {wall:.3f} / "
+          f"{wall2:.3f} s against unsharded {wall0:.3f} s (host-paced); two "
+          f"sharded runs bit-equal {same}; one-entry mesh bit-equal to "
+          f"_run_batch {one_same}; mean true fid sharded "
+          f"{float(got.true_fid.mean()):.6f} vs unsharded "
+          f"{float(ref.true_fid.mean()):.6f} (gap {gap:.2e}, bar 5e-2); "
+          f"restarts apart from the unsharded {moved}; stats {stats}; "
+          f"launches of the two sharded runs {used} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"mesh (b) {cls.name}: the sharded pool failed")
+    return used
+
+
+def phase_mesh(mc_first, mc_wall, worst, ppo_err):
+    """Phase 18: the mesh on the card (a MESH_ENTRIES-entry mesh of
+    cuda:0)."""
+    from code_robchar_tpu_torch.mc import engine
+    from code_robchar_tpu_torch.models import LBFGS, Adam, NMPlus, PPO_en
+    from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+    from code_robchar_tpu_torch.parallel import (Mesh, dryrun,
+                                                 sharded_mc_metrics,
+                                                 sharded_run_batch)
+
+    print(f"mesh: torch.cuda.device_count() {torch.cuda.device_count()}; "
+          f"a {MESH_ENTRIES}-entry mesh of cuda:0 (the blocks run one after "
+          f"another from the host on the one card)")
+    mesh = Mesh(["cuda:0"] * MESH_ENTRIES)
+    total = {}
+
+    def add(used):
+        for k, v in used.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the MC headline at full width, sharded
+    h0, ctrl, noises = _mc_inputs()
+    _reset_pipeline_counts()
+    start = time.perf_counter()
+    md = sharded_mc_metrics(mesh, h0.to("cuda"), ctrl, noises, prng.key(1),
+                            MC_BOOTREPS, 0, 6, complex_offdiag=True,
+                            alpha=0.05)
+    checksum = float(md[engine.RIM_NAME].sum(dtype=torch.float64))
+    wall = time.perf_counter() - start
+    used = _pipeline_counts()
+    add(used)
+    equal = sorted(k for k in md if torch.equal(md[k], mc_first[k]))
+    want = float(mc_first[engine.RIM_NAME].sum(dtype=torch.float64))
+    ok = (len(md) == 15 and len(equal) == 15 and checksum == want and
+          used["herm_jacobi_fidelity"] > 0)
+    print(f"mesh (a) sharded_mc_metrics: N=7 {MC_CONTROLLERS} controllers "
+          f"({MC_CONTROLLERS // MESH_ENTRIES} a block) x {MC_NOISES} x "
+          f"{MC_BOOTREPS}, key(1): {wall:.4f} s against the unsharded "
+          f"median {mc_wall:.4f} s; kernel 1 launches "
+          f"{used['herm_jacobi_fidelity']}; tensors bit-equal to phase 3's "
+          f"key(1) run {len(equal)} of {len(md)}; rim_checksum "
+          f"{checksum:.3f} (phase 3: {want:.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("mesh (a): the sharded metrics differ from the "
+                           "unsharded run")
+
+    # (b) the zoo pools, sharded
+    for cls, seed in ((LBFGS, 31), (NMPlus, 32)):
+        add(_sharded_pool(mesh, cls, seed))
+
+    # (c) PPO at bench.py's configuration, the agents sharded, two epochs
+    # through run(); beside it the same unsharded; the block shapes' kernels
+    # held first
+    # (phase 7 holds the rollout kernel over T=500 at A=1024; here the
+    # block's agent count over phase 7's T=64)
+    a_blk = PPO_AGENTS // MESH_ENTRIES
+    kw = dict(in_spin=0, out_spin=6, sweeps=4, bmax=10.0, maxtime=30.0,
+              max_ep_len=40, ham_noisy=True)
+    ppo_err["rollout"] = max(ppo_err["rollout"], _hold_rollout(
+        "a sharded block", _rollout_inputs(a_blk, 64, True, seed=41), kw,
+        free=False))
+    ppo_err["critic_bf16"] = max(ppo_err["critic_bf16"], _hold_critic_bf16(
+        "a sharded block", _critic_inputs(a_blk, PPO_STEPS, seed=42), 100,
+        1e-3)[0])
+    walls = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        ppo = PPO_en(7, 0, 6, testing=True, fid_threshold=0.0,
+                     ham_noisy=True, run_until_told_to_stop=True,
+                     run_until_completion_its=10**12, num_agents=PPO_AGENTS,
+                     rollout_sweeps=4, mesh=m, device="cuda",
+                     dtype=torch.float32)
+        _reset_pipeline_counts()
+        start = time.perf_counter()
+        best = ppo.run(epochs=2, steps_per_epoch=PPO_STEPS)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - start
+        used = _pipeline_counts()
+        if m is not None:
+            add(used)
+            blocks = 2 * MESH_ENTRIES
+            ok = (used["actor_env_rollout"] == blocks and
+                  used["critic_train_bf16"] == blocks and
+                  used["sym_jacobi_amp"] == blocks and
+                  used["critic_train"] == 0 and 0 <= best <= 1 + 1e-5)
+            print(f"mesh (c) PPO_en N=7 {PPO_AGENTS} agents ({a_blk} a "
+                  f"block) x {PPO_STEPS} steps, ham_noisy, 2 epochs through "
+                  f"run(): {walls['sharded']:.3f} s against unsharded "
+                  f"{walls['unsharded']:.3f} s (host-paced); "
+                  f"{2 * PPO_AGENTS * PPO_STEPS / walls['sharded']:.1f} "
+                  f"env-steps/s; launches {used} (rollout, bf16 critic and "
+                  f"the true fidelities once a block an epoch: {blocks}); "
+                  f"best reward {best:.6f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("mesh (c): the sharded PPO epoch did not "
+                                   "launch its kernels once a block")
+
+    # (d) Adam, 64 streams, one segment sharded; its block shape held
+    xs = None
+    walls = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        opt = _zoo_optimizer(Adam)
+        opt.fid_threshold = 0.0
+        x0s = opt.init_points(ADAM_STREAMS)
+        keys = prng.split(prng.key(43), ADAM_STREAMS)
+        if xs is None:
+            xs = torch.as_tensor(x0s[:ADAM_STREAMS // MESH_ENTRIES],
+                                 dtype=torch.float32, device="cuda")
+            _hold_zoo_kernels("adam sharded block", *_lanes_of(opt, xs),
+                              opt.HH, xs, 0, 6, worst)
+        _reset_pipeline_counts()
+        start = time.perf_counter()
+        if m is None:
+            res = opt._run_batch(torch.as_tensor(x0s, dtype=torch.float32,
+                                                 device="cuda"), keys)
+        else:
+            res = sharded_run_batch(m, opt, x0s, keys)
+        float(res.fid.sum())
+        walls[name] = time.perf_counter() - start
+        used = _pipeline_counts()
+        if m is not None:
+            add(used)
+            blk = ADAM_STREAMS // MESH_ENTRIES
+            steps = opt.segment_its
+            _expect_counts("mesh (d) adam", {k: used[k] for k in
+                                             AMP_KERNELS + GRAD_KERNELS}, [
+                (cuda_jacobi.grad_route(7, blk), MESH_ENTRIES * steps),
+                (cuda_jacobi.amp_route(7, blk), MESH_ENTRIES * (steps + 1))])
+            ok = bool(torch.isfinite(res.fid).all()) and \
+                res.x.shape == (ADAM_STREAMS, 8)
+            print(f"mesh (d) adam: N=7 {ADAM_STREAMS} streams ({blk} a "
+                  f"block), one {steps}-step segment: {walls['sharded']:.3f} "
+                  f"s against unsharded {walls['unsharded']:.3f} s "
+                  f"(host-paced); best fid {float(res.fid.max()):.6f} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("mesh (d): the sharded Adam segment "
+                                   "failed")
+
+    # (e) the dry run
+    _reset_pipeline_counts()
+    start = time.perf_counter()
+    dryrun.dryrun_multichip(MESH_ENTRIES)
+    used = _pipeline_counts()
+    add(used)
+    print(f"mesh (e) dry run: {time.perf_counter() - start:.2f} s, "
+          f"launches {used}")
+    print(f"  kernel launches in phase 18: {total}")
+    return total
+
+
 def _run(phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -3623,7 +4053,7 @@ def main():
     smi = _run(phase_device)
     res = _run(phase_build)
     err, ms, plain_ms, lib_ms, bound = _run(phase_kernel)
-    launches, wall, rate, checksum = _run(phase_main_path)
+    launches, wall, rate, checksum, mc_first = _run(phase_main_path)
     zoo_err, zoo_ms, floor = _run(phase_zoo_kernels)
     zoo_launches, zoo = _run(phase_zoo_path, zoo_err)
     ks = _run(phase_zoo_gates)
@@ -3636,6 +4066,8 @@ def main():
     sp_launches, sp = _run(phase_single_point)
     pipe_launches, pipe = _run(phase_pipeline)
     fig_launches, fig = _run(phase_figures)
+    snobfit_launches, snobfit = _run(phase_snobfit, zoo_err)
+    mesh_launches = _run(phase_mesh, mc_first, wall, zoo_err, ppo_err)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -3673,6 +4105,13 @@ def main():
         ppo_err[name] = max(ppo_err[name], held)
     launches += pipe_launches["herm_jacobi_fidelity"]
     launches += fig_launches     # phase 16's: the figures' sweeps
+    # phases 17 and 18: SNOBSkquant's batches, the mesh's paths
+    for name in zoo_launches:
+        zoo_launches[name] += snobfit_launches[name] + mesh_launches[name]
+    launches += mesh_launches["herm_jacobi_fidelity"]
+    ppo_launches["rollout"] += mesh_launches["actor_env_rollout"]
+    ppo_launches["critic_bf16"] += mesh_launches["critic_train_bf16"]
+    ppo_launches["critic"] += mesh_launches["critic_train"]
     zoo_err["sym_jacobi_amp"] = max(zoo_err["sym_jacobi_amp"], amp_err)
     kernels = [
         entry("herm_jacobi_fidelity",
@@ -3718,7 +4157,9 @@ def main():
           f"characterise {pipe['characterise_s']:.3f} s for "
           f"{len(PIPE_SETS)} sets of 1.1M Hamiltonians; figures (N=5) "
           f"fig 8 {fig['fig8_s']:.2f} s, holds within "
-          f"{fig['fig_worst']:.2e}; card {smi}")
+          f"{fig['fig_worst']:.2e}; SNOBSkquant (N=7, vendored) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in snobfit.items())
+          + f" restarts/s; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

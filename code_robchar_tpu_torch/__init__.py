@@ -6,10 +6,7 @@ obvious counterpart, and is held against it by the ``tests/test_torch_*``
 parity suite on the CPU.  It imports ``torch`` and numpy only — never jax,
 never the JAX package.
 
-Layout (the Monte-Carlo characterisation slice, the optimizer zoo's
-registry families L-BFGS, Nelder-Mead, Adam and SNOB, the PPO slice,
-binomial shot noise, the measurement probes, and the pipeline's entry
-points: the drivers CLI, Experiment and MCDataSim with its caches):
+Layout (every module of the JAX package has its counterpart here):
 
 - ``config``   dtype helpers, the device resolver, TF32 off
 - ``ops``      counter-based threefry PRNG with jax's randint and binomial
@@ -21,7 +18,8 @@ points: the drivers CLI, Experiment and MCDataSim with its caches):
                (``cuda_jacobi``), the PPO rollout and critic kernels'
                dispatch and plain versions (``rollout``, ``critic``), the
                probe kernels' (``probes``), Sobol restart streams
-               (``sobol``), complex-eigh fidelities (``propagate``)
+               (``sobol``), complex-eigh fidelities and gradient
+               (``propagate``)
 - ``metrics``  RIM / Wasserstein metrics, DKW bands, the metric registry,
                the host-side statistical helpers (ranks, CDFs, VN test)
 - ``mc``       the chunked Monte-Carlo sweep, its fused metric reduction,
@@ -32,8 +30,12 @@ points: the drivers CLI, Experiment and MCDataSim with its caches):
                code_robchar_tpu_torch.exp.drivers``), ``Experiment`` and
                its controller stores (.le), the namer and the flags
 - ``perf``     the probe path: the probe kernels' K-sweeps on the card
+- ``parallel`` the device mesh: sharded MC sweeps and metrics, zoo
+               batches, Adam streams and PPO agents, block by block over
+               an ordered list of devices; the multi-device dry run
 - ``models``   the zoo's batched objectives, run loop, L-BFGS, NMPlus,
-               Adam and SNOB, and their registry; PPO's environment,
+               Adam and SNOB, and their registry; the exact-SNOBFIT
+               adapter and its vendored engine; PPO's environment,
                actor-critic, masked Adam and trainer
 - ``utils``    the nvcc build of ``csrc/*.cu`` and its ctypes loader, the
                record protocol, deadlines, cache names and JSON IO, the

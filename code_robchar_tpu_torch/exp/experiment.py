@@ -19,8 +19,9 @@ imposes, mirroring noise_analysis.py:163-173).
 
 Port specifics: the models come from the port's ``MODEL_REGISTRY``, and
 ``device`` (None: the card, config.resolve_device) and ``dtype`` are
-forwarded to every model.  ``mesh`` (multi-device) is not ported yet and
-raises.
+forwarded to every model, and so is ``mesh`` (parallel/mesh.py), except
+to a PPO whose agent count is no multiple of the mesh size, which runs
+unsharded.
 """
 
 from __future__ import annotations
@@ -56,10 +57,6 @@ class Experiment:
                  global_dir: str = "experiments", testing: bool = False,
                  mesh=None, device=None,
                  dtype: torch.dtype = torch.float32):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device experiments are not ported yet (ROADMAP "
-                "slice 5)")
         assert isinstance(experiment_name, str), \
             "Experiment name needs to be a string."
         self.experiment_name = experiment_name
@@ -74,6 +71,8 @@ class Experiment:
         self.run_until_completion_its = run_until_completion_its
         self._save_results = True
         self._checkpoint_respawn = respawn_from_checkpoint
+        #: optional parallel.mesh.Mesh, forwarded to every model it builds
+        self.mesh = mesh
 
         self.args: Dict = dict(
             nspin=Nspin, in_spin=inspin, out_spin=outspin, timeout=timeout,
@@ -149,6 +148,14 @@ class Experiment:
         args = dict(self.args)
         if extra_args:
             args.update(extra_args)
+        if self.mesh is not None and "mesh" not in args:
+            n_dev = self.mesh.devices.size
+            if model_name == "ppo" and args.get("num_agents", 1) % n_dev:
+                print(f"[experiment] ppo runs UNSHARDED: num_agents "
+                      f"{args.get('num_agents', 1)} is not a multiple of "
+                      f"the mesh size {n_dev}")
+            else:
+                args["mesh"] = self.mesh
         x = inits[model_name](**args)
         x.fid_threshold = self.fid_threshold
         if model_name == "ppo":

@@ -20,11 +20,14 @@ The lattice runs as a Python loop over chunks of about ``chunk`` elements.
 the bootstrap axis is fastest — and reduces each chunk at once to the
 five-metric x three-band tensors (``metric_tensors``), so the (L, C, B)
 fidelity tensor is never held.  Same keys, so the same draws as the
-unfused ``mc_fidelity_sweep``.
+unfused ``mc_fidelity_sweep``.  A block of the controller axis
+(``c_offset``, ``c_global``; the sharded sweeps of parallel/mesh.py)
+folds the global ids, so it draws what the whole sweep draws there.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -56,12 +59,19 @@ def _setup(h0, controllers, noises, key, device, chunk):
 
 
 def _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin, out_spin,
-          complex_offdiag, use_jacobi):
-    """Fidelities of the lattice elements with flat ids ``ids``."""
+          complex_offdiag, use_jacobi, c_offset=0, c_global=None):
+    """Fidelities of the lattice elements with local flat ids ``ids``
+    (layout (L, C_local, B) over the controller block ``ctrl``).  Each
+    element's key folds its global id in the (L, ``c_global``, B) lattice,
+    the block starting at controller ``c_offset``, so a block of a sharded
+    sweep draws what the unsharded sweep draws for those elements."""
     num_c = ctrl.shape[0]
-    keys = prng.fold_in(key, ids)       # the flat id is the global id
+    c_global = num_c if c_global is None else c_global
     cell = ids // bootreps
-    xs, scales = ctrl[cell % num_c], noises[cell // num_c]
+    l_idx, c_idx = cell // num_c, cell % num_c
+    gids = (l_idx * c_global + c_idx + c_offset) * bootreps + ids % bootreps
+    keys = prng.fold_in(key, gids)
+    xs, scales = ctrl[c_idx], noises[l_idx]
     if not use_jacobi:
         # the element kernel of the JAX package's LAPACK path: the complex
         # perturbation of the same keys, then a complex eigh
@@ -78,7 +88,9 @@ def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
                       bootreps: int, in_spin: int, out_spin: int,
                       complex_offdiag: bool = True,
                       chunk: Optional[int] = None,
-                      device=None, use_jacobi: bool = True) -> torch.Tensor:
+                      device=None, use_jacobi: bool = True,
+                      c_offset: int = 0,
+                      c_global: Optional[int] = None) -> torch.Tensor:
     """Fidelity-distribution tensor of shape (L, C, B).
 
     h0: (n, n) drift Hamiltonian (its real part is used); controllers:
@@ -88,7 +100,9 @@ def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
     ``use_jacobi=True`` scores each chunk with the Jacobi fidelity (the
     kernel on the card, its plain version on the CPU); ``False`` with a
     complex eigh of the same draws (ops/propagate.py).  Neither route falls
-    back to the other."""
+    back to the other.  ``controllers`` may be the block of a larger
+    (``c_global``) controller set starting at ``c_offset`` (the sharded
+    sweep's blocks, parallel/mesh.py): its draws are the whole set's."""
     h0r, ctrl, noises, key, chunk = _setup(h0, controllers, noises, key,
                                            device, chunk)
     num_l, num_c = noises.shape[0], ctrl.shape[0]
@@ -99,7 +113,8 @@ def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
                            device=h0r.device)
         out[start:start + len(ids)] = _fids(h0r, ctrl, noises, key, ids,
                                             bootreps, in_spin, out_spin,
-                                            complex_offdiag, use_jacobi)
+                                            complex_offdiag, use_jacobi,
+                                            c_offset, c_global)
     return out.reshape(num_l, num_c, bootreps)
 
 
@@ -109,12 +124,16 @@ def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
                     chunk: Optional[int] = None,
                     alpha: float = 0.05,
                     device=None,
-                    use_jacobi: bool = True) -> Dict[str, torch.Tensor]:
+                    use_jacobi: bool = True,
+                    c_offset: int = 0,
+                    c_global: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Metric tensors (5 metrics x 3 DKW bands, each (L, C)) with the
     reduction fused into the sweep: the same draws as
     ``metric_tensors(mc_fidelity_sweep(...), alpha)``, without holding the
     (L, C, B) fidelity tensor.  Each chunk holds whole cells, about
-    ``chunk`` elements.  ``use_jacobi`` as in ``mc_fidelity_sweep``."""
+    ``chunk`` elements.  ``use_jacobi``, ``c_offset`` and ``c_global`` as
+    in ``mc_fidelity_sweep``."""
     h0r, ctrl, noises, key, chunk = _setup(h0, controllers, noises, key,
                                            device, chunk)
     num_l, num_c = noises.shape[0], ctrl.shape[0]
@@ -126,7 +145,8 @@ def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
         ids = torch.arange(start, min(start + step, total),
                            device=h0r.device)
         fids = _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin,
-                     out_spin, complex_offdiag, use_jacobi)
+                     out_spin, complex_offdiag, use_jacobi, c_offset,
+                     c_global)
         parts.append(metric_tensors(fids.reshape(-1, bootreps), alpha))
     return {k: torch.cat([p[k] for p in parts]).reshape(num_l, num_c)
             for k in parts[0]}
@@ -164,19 +184,29 @@ def characterise(h0, controllers, noises, key: torch.Tensor, bootreps: int,
                  complex_offdiag: bool = True, chunk: Optional[int] = None,
                  return_fids: bool = True,
                  device=None,
-                 use_jacobi: bool = True) -> Dict[str, torch.Tensor]:
+                 use_jacobi: bool = True,
+                 mesh=None) -> Dict[str, torch.Tensor]:
     """One-call robustness characterisation: the five-metric x three-band
     tensor dict, plus the (L, C, B) ``fids`` when ``return_fids``.
     ``return_fids=False`` takes the fused sweep (mc_metric_sweep): the same
     metric values without holding the fidelity tensor.  ``use_jacobi`` as
-    in ``mc_fidelity_sweep``."""
+    in ``mc_fidelity_sweep``.  With a ``mesh`` (parallel/mesh.py) the
+    controller axis is split over its entries (``device`` is then the
+    mesh's), with the same draws and values as the unsharded sweep."""
     kwargs = dict(complex_offdiag=complex_offdiag, chunk=chunk,
-                  device=device, use_jacobi=use_jacobi)
+                  use_jacobi=use_jacobi)
+    if mesh is not None:
+        from code_robchar_tpu_torch.parallel import mesh as pmesh
+        sweep = functools.partial(pmesh.sharded_mc_sweep, mesh)
+        metrics = functools.partial(pmesh.sharded_mc_metrics, mesh)
+    else:
+        sweep, metrics = mc_fidelity_sweep, mc_metric_sweep
+        kwargs["device"] = device
     if not return_fids:
-        return mc_metric_sweep(h0, controllers, noises, key, bootreps,
-                               in_spin, out_spin, alpha=alpha, **kwargs)
-    fids = mc_fidelity_sweep(h0, controllers, noises, key, bootreps,
-                             in_spin, out_spin, **kwargs)
+        return metrics(h0, controllers, noises, key, bootreps, in_spin,
+                       out_spin, alpha=alpha, **kwargs)
+    fids = sweep(h0, controllers, noises, key, bootreps, in_spin, out_spin,
+                 **kwargs)
     out = metric_tensors(fids, alpha)
     out["fids"] = fids
     return out

@@ -31,6 +31,11 @@ that stream, refilled on the host at restart boundaries
 held in the run's dtype, as the JAX package's ``jnp.asarray`` of the
 float64 draws is without x64, and candidates are computed in that dtype.
 
+With a ``mesh`` (parallel/mesh.py) a segment splits the streams over
+the mesh's entries when their count is a multiple of its size (else it
+runs unsharded): each block advances with its columns of the table and
+its own first key, as the JAX package's sharded segment does.
+
 Arithmetic followed from the reference's compiled segment, whose
 algebraic simplifier (the same for every XLA backend) rewrites a division
 by a constant into a product with the constant's reciprocal, taken in the
@@ -126,10 +131,11 @@ class Adam(ControlOptimizer):
 
     # ------------------------------------------------------- the segment
 
-    def _segment(self, w, m, v, ptr, key, restart: bool):
+    def _segment(self, w, m, v, ptr, key, restart: bool, table=None):
         """``segment_its`` Adam steps over the streams (the restart before
-        the last one when ``restart``) -> (w, m, v, ptr, fis (S, K),
-        ws (S, K, d), probes (K,))."""
+        the last one when ``restart``, its candidates from the streams'
+        columns ``table``, by default the whole table) -> (w, m, v, ptr,
+        fis (S, K), ws (S, K, d), probes (K,))."""
         spec = self.spec()
         exact_b = objectives.make_exact_gradient_batch(spec)
         infid_b = objectives.make_infidelity_batch(spec)
@@ -155,14 +161,15 @@ class Adam(ControlOptimizer):
         for _ in range(seg - 1 if restart else seg):
             w, m, v, key = step(w, m, v, key)
         if restart:
-            w, ptr, probes = self._retry_restart(w, ptr, exact_b)
+            w, ptr, probes = self._retry_restart(w, ptr, exact_b, table)
             w, m, v, key = step(w, m, v, key)
         return w, m, v, ptr, torch.stack(fis), torch.stack(ws), probes
 
-    def _retry_restart(self, w, ptr, exact_b):
+    def _retry_restart(self, w, ptr, exact_b, table=None):
         """qnewton.py:681-700 over the streams: each stream draws Sobol
-        candidates from its column of the table until its exact gradient's
-        norm clears the gate, at most ``_MAX_RETRIES`` probes; each probe
+        candidates from its column of ``table`` (by default the whole
+        table) until its exact gradient's norm clears the gate, at most
+        ``_MAX_RETRIES`` probes; each probe
         bills one fcall and one iteration per stream still probing.  A
         stream that reaches the cap keeps its point.  -> (w, ptr,
         probes (K,))."""
@@ -171,7 +178,7 @@ class Adam(ControlOptimizer):
         sids = torch.arange(k, device=dev)
         ok = torch.zeros(k, dtype=torch.bool, device=dev)
         tries = torch.zeros(k, dtype=torch.int32, device=dev)
-        table = self._table
+        table = self._table if table is None else table
         rows = table.shape[0]
         span = self._upper - self._lower
         while True:
@@ -275,17 +282,53 @@ class Adam(ControlOptimizer):
         if restart_due:
             # a refill may lift the pointers: unpack the stream after it
             self._maybe_refill_table(k)
-        w, m, v, it, ptr = self._stream
+        # shard only when the stream count fills the mesh: a smaller stream
+        # set runs unsharded (the run loop's sub-mesh remainder contract)
+        n_dev = self.mesh.devices.size if self.mesh is not None else 1
+        if self.mesh is None or k < n_dev or k % n_dev:
+            stream, res = self._advance(self._stream, keys, self._table,
+                                        restart_due)
+        else:
+            stream, res = self._advance_sharded(keys, restart_due)
+        self._stream = stream
+        return res
+
+    def _advance(self, stream, keys, table, restart: bool):
+        """One segment of the streams ``stream`` (w, m, v, it, ptr), keyed
+        by ``keys[0]``, restarting from the columns ``table`` when
+        ``restart`` -> (the advanced stream, BatchResult)."""
+        w, m, v, it, ptr = stream
         w, m, v, ptr, fis, ws, probes = self._segment(w, m, v, ptr, keys[0],
-                                                      restart_due)
+                                                      restart, table)
         seg = self.segment_its
         kc = max(1, min(self.cand_per_segment, seg))
         true = objectives.fidelity_batch(self.HH, w, self.In, self.Out)
         cand_fid, cand_x = top_candidates(fis, ws, kc)
-        self._stream = (w, m, v, it + seg, ptr)
         calls = seg + probes
-        return BatchResult(w, fis[-1], true, calls, calls.clone(),
-                           cand_x=cand_x, cand_fid=cand_fid)
+        return (w, m, v, it + seg, ptr), BatchResult(
+            w, fis[-1], true, calls, calls.clone(), cand_x=cand_x,
+            cand_fid=cand_fid)
+
+    def _advance_sharded(self, keys, restart: bool):
+        """``_advance`` with the stream axis split over ``self.mesh``: each
+        block advances its streams, with its columns of the table and its
+        own first key (a block's ranking draws are keyed by it), on its
+        entry's device, as the JAX package's shard_map segment does; the
+        outputs are gathered on the mesh's first device."""
+        from code_robchar_tpu_torch.parallel import mesh as pmesh
+        mesh = self.mesh
+        streams = pmesh.shard_leading_tree(mesh, self._stream,
+                                           self._stream[0].shape[0])
+        tables = pmesh.shard_batch(mesh, self._table, axis=1)
+        key_blocks = pmesh.shard_batch(mesh, keys)
+        outs = []
+        for dev, stream, table, kb in zip(mesh.devices, streams, tables,
+                                          key_blocks):
+            view = pmesh.on_device(self, dev)
+            with pmesh.on(dev):
+                outs.append(view._advance(stream, kb, table, restart))
+        stream, res = pmesh.gather_tree(mesh, outs)
+        return tuple(x.to(self.device) for x in stream), res
 
     def run(self):
         # Adam is a persistent stream, not independent restarts: the fcall

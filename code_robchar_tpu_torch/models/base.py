@@ -22,8 +22,12 @@ float32 on the card; float64 on the CPU is the parity regime), every key
 is a prng key bit-equal to the JAX package's for the same seed, and
 ``carry_state`` copies a JAX optimizer's key and fixed ensembles so both
 packages compute the same thing.  Nothing is compiled, so the JAX
-package's program cache has no counterpart; ``mesh`` (multi-device) is
-not ported yet.
+package's program cache has no counterpart.
+
+With a ``mesh`` (parallel/mesh.py) the run loop splits each dispatched
+batch over the mesh's entries (``_run_batch_sharded``): it rounds the
+batch down to a multiple of the mesh size and runs a remainder smaller
+than the mesh unsharded, as the JAX package's loop does.
 
 The single-controller helpers of the reference API (``ngd``,
 ``wass_cost``, ``overlap_ss``, the perturbation draws and the sampling
@@ -86,10 +90,6 @@ class ControlOptimizer:
                  restart_batch: Optional[int] = None,
                  mesh=None, device=None,
                  dtype: torch.dtype = torch.float32):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device restarts are not ported yet (ROADMAP "
-                "slice 5)")
         self.device = config.resolve_device(device)
         self.dtype = dtype
         self.Nspin = nspin
@@ -126,6 +126,10 @@ class ControlOptimizer:
         self.records_update_rate = records_update_rate
         self.fun_call_limit = 1e10
         self.restart_batch = restart_batch
+        #: optional parallel.mesh.Mesh: restart and stream batches are split
+        #: over its entries, each block through this optimizer's own batch
+        #: on the entry's device
+        self.mesh = mesh
         #: rounds and host syncs of the last _run_batch (see the subclasses)
         self.stats: Dict[str, int] = {}
 
@@ -352,6 +356,17 @@ class ControlOptimizer:
                    ) -> BatchResult:
         raise NotImplementedError
 
+    def _run_batch_sharded(self, x0s: torch.Tensor, keys: torch.Tensor
+                           ) -> BatchResult:
+        """``_run_batch`` with the restart axis split over ``self.mesh``
+        (parallel.mesh.build_sharded_batch_fn, which states the determinism
+        contract).  Persistent-stream optimizers (Adam) shard inside their
+        own ``_run_batch``."""
+        if self.persistent_streams:
+            return self._run_batch(x0s, keys)
+        from code_robchar_tpu_torch.parallel import mesh as pmesh
+        return pmesh.build_sharded_batch_fn(self.mesh, self)(x0s, keys)
+
     def _batch_size(self) -> int:
         if self.restart_batch:
             return self.restart_batch
@@ -386,6 +401,7 @@ class ControlOptimizer:
                            and self.run_until_completion_its
                            and not self.persistent_streams)
         x0s_first = None   # persistent streams: init draws consumed once
+        n_dev = self.mesh.devices.size if self.mesh is not None else 1
 
         # data-independent cap on the batch shape from the fcall budget and
         # the nominal per-restart cost: every dispatch of the run has one
@@ -413,6 +429,13 @@ class ControlOptimizer:
                     est = max(1.0, funccalls / reps_done)
                 remaining = float(self.run_until_completion_its) - funccalls
                 k = min(k, max(1, int(np.ceil(remaining / est))))
+            # a sharded dispatch needs a multiple of the mesh size: round
+            # down (never past repeats or the budget) and run a final
+            # remainder smaller than the mesh unsharded
+            shard_this = self.mesh is not None and k_sched >= n_dev
+            if shard_this:
+                k_sched = (k_sched // n_dev) * n_dev
+                k = min(k, k_sched)
             if self.persistent_streams and x0s_first is not None \
                     and len(x0s_first) == k:
                 # persistent streams (Adam) ignore x0s after their first
@@ -429,7 +452,10 @@ class ControlOptimizer:
                     [x0s, np.repeat(x0s[-1:], k_sched - k, axis=0)])
             x0s = torch.as_tensor(x0s, dtype=self.dtype, device=self.device)
             keys = prng.split(self.next_key(), k_sched)
-            res = self._run_batch(x0s, keys)
+            if shard_this:
+                res = self._run_batch_sharded(x0s, keys)
+            else:
+                res = self._run_batch(x0s, keys)
 
             xs = res.x[:k].cpu().numpy()
             fids = res.fid[:k].cpu().numpy()

@@ -297,6 +297,30 @@ class Environment:
             fixed_hams=self.randH if self.use_fixed_ham else None)
         return float(reward)
 
+    def structured_perturabation(self, noise):  # reference spelling
+        """A real structured perturbation of width ``noise`` from the env's
+        key stream: complex (n, n) on the env's device, real off the
+        diagonal (complex_offdiag=False)."""
+        return noise_ops.structured_perturbation(
+            self._next().to(self.device), self.Nspin, noise,
+            complex_offdiag=False, dtype=config.complex_dtype(self.dtype))
+
+    # ----------------------- reference-API capability shims ----------------
+
+    def state_vector(self, occ):
+        return chain.basis_state(self.Nspin, occ,
+                                 dtype=torch.float64).numpy()
+
+    def input_state(self):
+        rho = np.zeros((self.Nspin, self.Nspin))
+        rho[self.in_spin, self.in_spin] = 1
+        return rho
+
+    def output_state(self):
+        rho = np.zeros((self.Nspin, self.Nspin))
+        rho[self.out_spin, self.out_spin] = 1
+        return rho
+
     def reinit_sys_hamiltonian(self):
         """Re-draw the masked perturbed system of transfer-learning mode
         (RLreinforce...:75-80), honouring the env's topology and

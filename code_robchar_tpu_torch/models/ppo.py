@@ -49,7 +49,13 @@ agent keys, as the JAX package's epoch (ppo.py:681-693), through the
 amplitude kernel in chunks (models/objectives.make_wass_cost); the
 advantages keep the GAE from the value baseline.
 
-Not ported, and raising ``NotImplementedError``: ``mesh`` (slice 5).
+With a ``mesh`` (parallel/mesh.py) and more than one agent, the agent
+axis is split over the mesh's entries: ``run()`` lays the state out in
+blocks and each block trains its agents through the epoch above on its
+entry's device, its randomness from the block's own first agent's key,
+as the JAX package's sharded epoch draws it; the epoch's outputs are
+gathered on the mesh's first device.
+
 Nothing is compiled, so the JAX package's program cache has no
 counterpart: the epoch reads ``env.noise`` at each call.
 """
@@ -230,10 +236,6 @@ class PPO_en:
                  fused_rollout: Optional[bool] = None,
                  mesh=None, device=None,
                  dtype: torch.dtype = torch.float32):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device agents are not ported yet (ROADMAP "
-                "slice 5, item 21)")
         self.device = config.resolve_device(device)
         self.dtype = dtype
         self.nspin = nspin
@@ -260,6 +262,13 @@ class PPO_en:
         self.train_size = opt_train_size
         self.records_update_rate = records_update_rate
         self.num_agents = num_agents
+        #: optional parallel.mesh.Mesh over the agent axis (data parallelism
+        #: over independent controller searches)
+        self.mesh = mesh
+        if mesh is not None and num_agents % mesh.devices.size:
+            raise ValueError(
+                f"num_agents {num_agents} must be a multiple of the mesh "
+                f"size {mesh.devices.size}")
         self.use_wass_value_targets = use_wass_value_targets
         self.wass_bootstrap_reps = wass_bootstrap_reps
         #: Jacobi sweeps of the in-rollout reward (None: the dtype's
@@ -352,22 +361,51 @@ class PPO_en:
         if self.stage_hook is not None:
             self.stage_hook(name)
 
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.num_agents > 1
+
     def _build_epoch(self, steps_per_epoch, clip_ratio, pi_lr, vf_lr,
                      max_ep_len, train_pi_iters, train_v_iters, target_kl):
         """One PPO epoch for ALL agents at once, as ``epoch_fn(st) ->
         (st', EpochOut)``.  The drift is taken now; ``self.env.noise`` is
         read at each call (the Experiment driver trains one PPO per sigma
-        cell, noise_analysis.py:343-344)."""
+        cell, noise_analysis.py:343-344).  With a mesh (and more than one
+        agent) ``st`` is the list of the mesh entries' state blocks
+        (parallel.mesh.shard_leading_tree), ``st'`` too, and the EpochOut is
+        gathered on the mesh's first device."""
         self._signal_fused_fallbacks()
+        args = (steps_per_epoch, clip_ratio, pi_lr, vf_lr, max_ep_len,
+                train_pi_iters, train_v_iters, target_kl)
+        if not self._sharded():
+            return self._build_epoch_impl(*args)
+        from code_robchar_tpu_torch.parallel import mesh as pmesh
+        mesh = self.mesh
+        fns = [pmesh.on_device(self, dev)._build_epoch_impl(*args)
+               for dev in mesh.devices]
 
+        def epoch_fn(blocks):
+            outs = []
+            for dev, fn, st in zip(mesh.devices, fns, blocks):
+                with pmesh.on(dev):
+                    outs.append(fn(st))
+            return ([o[0] for o in outs],
+                    pmesh.gather_tree(mesh, [o[1] for o in outs]))
+        return epoch_fn
+
+    def _build_epoch_impl(self, steps_per_epoch, clip_ratio, pi_lr, vf_lr,
+                          max_ep_len, train_pi_iters, train_v_iters,
+                          target_kl):
+        """The epoch of ``_build_epoch`` for the agents of one device,
+        ``self.device``."""
         cfg = self._cfg()
         n, d = self.nspin, self.nspin + 1
         dt, dev = self.dtype, self.device
-        h0 = self.env.sys.to(dt)
+        h0 = self.env.sys.to(device=dev, dtype=dt)
         fixed_r = None
         if self.use_fixed_ham:
             fixed = self.env.randH
-            fixed_r = (fixed.real if fixed.is_complex() else fixed).to(dt)
+            fixed_r = (fixed.real if fixed.is_complex() else fixed).to(
+                device=dev, dtype=dt)
         gamma, lam = self.gamma, self.lam
         mul = self.train_size if self.use_fixed_ham else 1
         sweeps = (self.rollout_sweeps if self.rollout_sweeps is not None
@@ -602,6 +640,9 @@ class PPO_en:
 
         e = self.num_agents
         st = self._init_agent(key if e == 1 else prng.split(key, e))
+        if self._sharded():
+            from code_robchar_tpu_torch.parallel import mesh as pmesh
+            st = pmesh.shard_leading_tree(self.mesh, st, e)
 
         deadline = Deadline(self.timeout)
         top = TopControllers(self.save_topc)

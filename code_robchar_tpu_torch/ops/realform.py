@@ -25,6 +25,12 @@ Two halves:
   ``fidelity_from_controller_sym`` and ``infidelity_and_gradient_sym``,
   which run through the lanes functions with the batch moved last.
 
+The single-matrix functions of the JAX module, on (..., n, n) arrays in
+its cyclic order: ``jacobi_eigh_herm``, ``fidelity_sym``,
+``fidelity_herm`` (both from the in and out eigenvector rows,
+``_sym_eigh_rows`` / ``_herm_eigh_rows``) and ``split_hermitian``; they
+run the lanes sweeps above with the batch moved last.
+
 ``order="cyclic"`` is the row-major pivot order of the JAX lanes
 functions; ``order="roundrobin"`` is the circle-method stage order of the
 Pallas kernels (and of the CUDA kernels), with each stage's angles
@@ -137,6 +143,22 @@ def _apply(ar, ai, vr, vi, p, q, rows, ang):
     vr[:, p], vi[:, p] = nvpr, nvpi
 
 
+def _herm_sweeps(ar, ai, vr, vi, sweeps, order):
+    """``sweeps`` Hermitian Jacobi sweeps on ``ar``, ``ai`` (n, n, B), in
+    place, carrying the eigenvector rows ``vr``, ``vi`` (R, n, B)."""
+    n = ar.shape[0]
+    eps = _eps_for(ar.dtype)
+    schedule = pair_schedule(n, order)
+    rows = {(p, q): torch.tensor([i for i in range(n) if i not in (p, q)],
+                                 dtype=torch.long, device=ar.device)
+            for stage in schedule for (p, q) in stage}
+    for _ in range(sweeps):
+        for stage in schedule:
+            angs = [_angles(ar, ai, p, q, eps) for (p, q) in stage]
+            for (p, q), ang in zip(stage, angs):
+                _apply(ar, ai, vr, vi, p, q, rows[p, q], ang)
+
+
 def fidelity_herm_lanes(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
                         in_spin: int, out_spin: int, sweeps: int | None = None,
                         order: str = "roundrobin") -> torch.Tensor:
@@ -147,7 +169,6 @@ def fidelity_herm_lanes(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
     b = ar.shape[-1]
     if sweeps is None:
         sweeps = _sweeps_for(ar.dtype, n)
-    eps = _eps_for(ar.dtype)
     ar = ar.clone()
     ai = ai.clone()
     vr = torch.zeros((2, n, b), dtype=ar.dtype, device=ar.device)
@@ -155,15 +176,7 @@ def fidelity_herm_lanes(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
     vr[1, out_spin] = 1.0
     vi = torch.zeros_like(vr)
 
-    schedule = pair_schedule(n, order)
-    rows = {(p, q): torch.tensor([i for i in range(n) if i not in (p, q)],
-                                 dtype=torch.long, device=ar.device)
-            for stage in schedule for (p, q) in stage}
-    for _ in range(sweeps):
-        for stage in schedule:
-            angs = [_angles(ar, ai, p, q, eps) for (p, q) in stage]
-            for (p, q), ang in zip(stage, angs):
-                _apply(ar, ai, vr, vi, p, q, rows[p, q], ang)
+    _herm_sweeps(ar, ai, vr, vi, sweeps, order)
 
     phr = torch.zeros_like(t)
     phi = torch.zeros_like(t)
@@ -424,3 +437,119 @@ def infidelity_and_gradient_sym(h0: torch.Tensor, x: torch.Tensor,
     err, grad = infidelity_and_gradient_sym_lanes(
         h0, x.reshape(-1, n + 1), in_spin, out_spin, order="cyclic")
     return err.reshape(lead), grad.reshape(lead + (n + 1,))
+
+
+# --------------------------------------------------------------------------
+# single-matrix functions (..., n, n): the JAX package's cyclic order,
+# through the lanes sweeps above with the batch moved last
+# --------------------------------------------------------------------------
+
+def _from_lanes(x: torch.Tensor, lead) -> torch.Tensor:
+    """(..., B) lanes tensor -> (B, ...) reshaped to ``lead + (...)``."""
+    return x.permute(-1, *range(x.dim() - 1)).reshape(
+        tuple(lead) + tuple(x.shape[:-1]))
+
+
+def _row_select(rows, n, b, dtype, device) -> torch.Tensor:
+    sel = torch.zeros((len(rows), n, b), dtype=dtype, device=device)
+    for r, row in enumerate(rows):
+        sel[r, row] = 1.0
+    return sel
+
+
+def _sym_eigh_rows(a: torch.Tensor, rows, sweeps: int | None = None):
+    """(lam unsorted (..., n), vrows (..., R, n)) of real symmetric
+    (..., n, n), with vrows[..., r, :] = V[rows[r], :]."""
+    n, lead = a.shape[-1], a.shape[:-2]
+    if sweeps is None:
+        sweeps = _sweeps_for(a.dtype, n)
+    la = _to_lanes(a).clone()
+    v = _row_select(rows, n, la.shape[-1], a.dtype, a.device)
+    _sym_sweeps(la, v, sweeps, "cyclic")
+    idx = torch.arange(n, device=a.device)
+    return _from_lanes(la[idx, idx], lead), _from_lanes(v, lead)
+
+
+def _herm_eigh_rows(ar: torch.Tensor, ai: torch.Tensor, rows,
+                    sweeps: int | None = None):
+    """(lam unsorted (..., n), vr_rows, vi_rows (..., R, n)) of the
+    Hermitian A = ar + i ai, given as its split parts (..., n, n)."""
+    n, lead = ar.shape[-1], ar.shape[:-2]
+    if sweeps is None:
+        sweeps = _sweeps_for(ar.dtype, n)
+    lr, li = _to_lanes(ar).clone(), _to_lanes(ai).clone()
+    vr = _row_select(rows, n, lr.shape[-1], ar.dtype, ar.device)
+    vi = torch.zeros_like(vr)
+    _herm_sweeps(lr, li, vr, vi, sweeps, "cyclic")
+    idx = torch.arange(n, device=ar.device)
+    return (_from_lanes(lr[idx, idx], lead), _from_lanes(vr, lead),
+            _from_lanes(vi, lead))
+
+
+def jacobi_eigh_herm(ar: torch.Tensor, ai: torch.Tensor,
+                     sweeps: int | None = None):
+    """Eigendecomposition of the Hermitian A = ar + i ai given as split
+    parts (..., n, n), cyclic order: (lam (..., n) ascending, vr, vi
+    (..., n, n)) with the eigenvectors as columns."""
+    n = ar.shape[-1]
+    lam, vr, vi = _herm_eigh_rows(ar, ai, range(n), sweeps)
+    srt = torch.argsort(lam, dim=-1, stable=True)
+
+    def take(m):
+        return torch.take_along_dim(m, srt[..., None, :], dim=-1)
+    return torch.take_along_dim(lam, srt, dim=-1), take(vr), take(vi)
+
+
+def _phase_parts(lam: torch.Tensor, t) -> tuple:
+    """e^{-i t lam} as (cos(t lam), -sin(t lam))."""
+    ang = lam * torch.as_tensor(t, dtype=lam.dtype,
+                                device=lam.device)[..., None]
+    return torch.cos(ang), -torch.sin(ang)
+
+
+def fidelity_sym(h: torch.Tensor, t, in_spin: int, out_spin: int,
+                 eigh_sym=None) -> torch.Tensor:
+    """|<out| exp(-i t H) |in>|^2 for real symmetric H (..., n, n), from
+    the in and out eigenvector rows (or from ``eigh_sym(h) -> (lam, v)``
+    when given)."""
+    if eigh_sym is not None:
+        lam, v = eigh_sym(h)
+        v_out, v_in = v[..., out_spin, :], v[..., in_spin, :]
+    else:
+        lam, vrows = _sym_eigh_rows(h, (in_spin, out_spin))
+        v_in, v_out = vrows[..., 0, :], vrows[..., 1, :]
+    w = v_out * v_in
+    cr, ci = _phase_parts(lam, t)
+    phr = torch.sum(w * cr, dim=-1)
+    phi = torch.sum(w * ci, dim=-1)
+    return phr * phr + phi * phi
+
+
+def fidelity_herm(ar: torch.Tensor, ai: torch.Tensor, t, in_spin: int,
+                  out_spin: int, eigh_herm=None) -> torch.Tensor:
+    """|<out| exp(-i t (ar + i ai)) |in>|^2 in split arithmetic (..., n, n):
+    phi = sum_k a_k f_k conj(b_k) with a = V[out, :], b = V[in, :] and
+    f = e^{-i t lam}, expanded into real products."""
+    if eigh_herm is not None:
+        lam, vr, vi = eigh_herm(ar, ai)
+        aor, aoi = vr[..., out_spin, :], vi[..., out_spin, :]
+        bir, bii = vr[..., in_spin, :], vi[..., in_spin, :]
+    else:
+        lam, vrr, vir = _herm_eigh_rows(ar, ai, (in_spin, out_spin))
+        bir, bii = vrr[..., 0, :], vir[..., 0, :]
+        aor, aoi = vrr[..., 1, :], vir[..., 1, :]
+    gr = aor * bir + aoi * bii                  # g = a * conj(b)
+    gi = aoi * bir - aor * bii
+    fr, fi = _phase_parts(lam, t)
+    phr = torch.sum(gr * fr - gi * fi, dim=-1)
+    phi = torch.sum(gr * fi + gi * fr, dim=-1)
+    return phr * phr + phi * phi
+
+
+def split_hermitian(h: torch.Tensor):
+    """Complex Hermitian -> (real, imag) parts; a real h has a zero
+    imaginary part."""
+    h = torch.as_tensor(h)
+    if not h.is_complex():
+        return h, torch.zeros_like(h)
+    return h.real, h.imag

@@ -18,7 +18,8 @@ loop's persistent streams and per-iteration candidates
   with the reciprocal of a constant divisor, constants folded), bit for
   bit over 1000 steps; the restart candidates are the reference's float32
   arithmetic bit for bit; ties in the top-k keep the earlier step.
-- The registry, the refusals and the missing CPU fallback.
+- The registry, the refusals, a segment on a CPU mesh and the missing CPU
+  fallback.
 """
 
 from collections import OrderedDict
@@ -38,6 +39,7 @@ from code_robchar_tpu_torch.models import MODEL_REGISTRY, SNOB, Adam
 from code_robchar_tpu_torch.models import adam as tadam
 from code_robchar_tpu_torch.models import objectives
 from code_robchar_tpu_torch.ops import prng
+from code_robchar_tpu_torch.parallel import Mesh
 
 F64 = dict(dtype=torch.float64, device="cpu")
 F32 = dict(dtype=torch.float32, device="cpu")
@@ -484,8 +486,17 @@ def test_adam_refusals():
         Adam(4, 0, 2, testing=True, **F64)
     with pytest.raises(Exception, match="isn't available"):
         Adam(4, 0, 2, **dict(kw, landscape_exploration=False))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        Adam(4, 0, 2, mesh=object(), **kw)
+    # mesh was refused until it was ported: a noiseless segment sharded
+    # over two CPU entries advances each stream as the unsharded one does
+    kw.update(restart_batch=4, segment_its=10, seed=2)
+    sharded = Adam(4, 0, 2, mesh=Mesh(["cpu"] * 2), **kw)
+    plain = Adam(4, 0, 2, **kw)
+    x0 = torch.as_tensor(plain.init_points(4))
+    sharded.init_points(4)
+    keys = prng.split(prng.key(0), 4)
+    got, want = sharded._run_batch(x0, keys), plain._run_batch(x0, keys)
+    for name in ("x", "fid", "true_fid", "nfev", "cand_fid", "cand_x"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 @pytest.mark.parametrize("cls", [Adam, SNOB])

@@ -205,3 +205,32 @@ def test_env_reset():
     st, obs = env.env_reset(cfg, dtype=torch.float64)
     assert obs.shape == (6,) and float(obs.abs().sum()) == 0.0
     assert float(st.final_time) == 30.0
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_environment_reference_shims_match_jax(seed):
+    """The four reference-API methods: ``structured_perturabation`` from
+    the env's key stream (the next key after the same construction), real
+    off the diagonal and Hermitian, on the env's device; ``state_vector``,
+    ``input_state`` and ``output_state``."""
+    jw = jenv.Environment(5, 1, 3, seed=seed)
+    pw = env.Environment(5, 1, 3, seed=seed, dtype=torch.float64,
+                         device="cpu")
+    for noise in (0.05, 0.2):
+        want = jw.structured_perturabation(noise)
+        got = pw.structured_perturabation(noise)
+        assert got.device == pw.device and got.dtype == torch.complex128
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+        assert float(got.imag.abs().max()) == 0.0
+        assert torch.equal(got, got.mH)
+        assert float(got.abs().max()) > 0.0
+    for occ in range(5):
+        np.testing.assert_array_equal(pw.state_vector(occ),
+                                      jw.state_vector(occ))
+    np.testing.assert_array_equal(pw.input_state(), jw.input_state())
+    np.testing.assert_array_equal(pw.output_state(), jw.output_state())
+    assert pw.input_state()[1, 1] == 1 and pw.output_state()[3, 3] == 1
+    # the stream moved on as the JAX env's did: the next steps agree
+    step = np.diag(np.linspace(-2, 2, 5))
+    pw.timestep = jw.timestep = 4.0
+    assert abs(pw.step(step)[1] - jw.step(step)[1]) < TOL

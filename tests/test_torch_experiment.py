@@ -18,6 +18,7 @@ from code_robchar_tpu.exp import drivers as jdrivers
 from code_robchar_tpu.mc import MCDataSim as JMCDataSim
 from code_robchar_tpu.ops.propagate import fidelity_batch
 from code_robchar_tpu_torch.exp import Experiment, ExperimentNamer, drivers
+from code_robchar_tpu_torch.parallel import Mesh
 from code_robchar_tpu_torch.exp.cli import (get_mcsim_args,
                                             get_noise_analysis_args)
 from code_robchar_tpu_torch.exp.experiment import ModelDoesNotExistError
@@ -267,8 +268,18 @@ def test_cli_flag_surface():
 
 
 def test_mesh_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        small_exp(tmp_path, mesh=object())
+    """``mesh`` was refused until it was ported: it is now forwarded to
+    every model (a PPO whose agent count it does not divide runs
+    unsharded), as in the JAX package."""
+    mesh = Mesh(["cpu"] * 2)
+    exp = small_exp(tmp_path, mesh=mesh)
+    assert exp.mesh is mesh
+    inits = exp.init_chosen_models(["lbfgs", "nmplus", "ppo"])
+    for name in ("lbfgs", "nmplus"):
+        assert exp._make_model(inits, name, 0.0).mesh is mesh
+    assert exp._make_model(inits, "ppo", 0.0).mesh is None
+    exp.args["num_agents"] = 2
+    assert exp._make_model(inits, "ppo", 0.0).mesh is mesh
 
 
 class _RecordingExperiment:

@@ -27,7 +27,8 @@ def test_import_pulls_in_no_jax():
             "from code_robchar_tpu_torch.ops import cuda_jacobi, prng, "
             "rollout, critic\n"
             "from code_robchar_tpu_torch.models import actor_critic, env, "
-            "optim, ppo\n"
+            "optim, ppo, snob_skquant, snobfit_core\n"
+            "from code_robchar_tpu_torch.parallel import dryrun, mesh\n"
             "from code_robchar_tpu_torch.utils import build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'code_robchar_tpu' or "

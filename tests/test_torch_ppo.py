@@ -18,7 +18,7 @@ optim, ppo) against the JAX package, on the CPU at small sizes.
   (``use_wass_value_targets``, 5 bootstrap reps), on both paths, at the
   same bars.
 - The KL gate, run() in its budget and threshold modes, the fixed-ham
-  billing, the gate diagnostics, and what raises (``mesh``).
+  billing, the gate diagnostics, and a run on a CPU mesh.
 """
 
 import numpy as np
@@ -33,6 +33,7 @@ from code_robchar_tpu.models import actor_critic as jac
 from code_robchar_tpu_torch.models import PPO_en
 from code_robchar_tpu_torch.models import actor_critic as ac, optim, ppo
 from code_robchar_tpu_torch.ops import prng
+from code_robchar_tpu_torch.parallel import Mesh
 
 F64 = dict(device="cpu", dtype=torch.float64)
 EPOCH = (16, 0.2, 3e-3, 1e-3, 1000, 2, 3, 0.01)
@@ -313,11 +314,21 @@ def test_fallback_reasons_are_signalled(capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "slice 5")])
-def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        PPO_en(3, 0, 2, testing=True, device="cpu", **kw).run(
-            steps_per_epoch=4, epochs=1)
+@pytest.mark.parametrize("agents", [4])
+def test_unported_options_raise(agents):
+    """``mesh`` raised until it was ported: an agent count it does not
+    divide raises, and a run with the agents split over two CPU entries
+    trains and keeps its record."""
+    mesh = Mesh(["cpu"] * 2)
+    with pytest.raises(ValueError, match="multiple of the mesh size"):
+        PPO_en(3, 0, 2, testing=True, num_agents=agents - 1, mesh=mesh,
+               device="cpu")
+    p = PPO_en(3, 0, 2, testing=True, num_agents=agents, mesh=mesh,
+               run_until_told_to_stop=True, run_until_completion_its=16,
+               landscape_exploration=True, save_topc=4, device="cpu")
+    assert 0.0 <= p.run(steps_per_epoch=4, epochs=1, train_pi_iters=2,
+                        train_v_iters=2) <= 1.0 + 1e-6
+    assert p.record["func_calls"] == 15
 
 
 def test_gae_matches_jax():

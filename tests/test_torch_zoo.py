@@ -33,6 +33,7 @@ from code_robchar_tpu.ops import chain as jchain, noise as jnoise
 from code_robchar_tpu_torch.models import LBFGS, NMPlus
 from code_robchar_tpu_torch.models import base, lbfgs, nmplus, objectives
 from code_robchar_tpu_torch.ops import chain, noise, prng
+from code_robchar_tpu_torch.parallel import Mesh
 
 F64 = dict(dtype=torch.float64, device="cpu")
 
@@ -235,7 +236,10 @@ def test_shot_noise_and_mesh_are_refused():
     """Shot noise was refused until it was ported (ROADMAP item 9): the
     objective and ``fidelity_ss(noisy=True)`` now run (held against the
     JAX package in tests/test_torch_shot_noise.py) and give whole tenths of
-    draws 10; mesh and the Wasserstein cost outside L-BFGS still raise."""
+    draws 10.  ``mesh`` was refused too until it was ported: an L-BFGS on
+    a two-entry CPU mesh now takes it, and a batch through it is the
+    unsharded batch's restarts (tests/test_torch_parallel.py holds the
+    mesh paths).  The Wasserstein cost outside L-BFGS still raises."""
     _, ts = _specs(4, "noiseless")
     f, calls = objectives.make_infidelity_batch(ts._replace(fid_noisy=True))(
         _t(_xs(4, 12)), prng.key(0))
@@ -244,8 +248,13 @@ def test_shot_noise_and_mesh_are_refused():
     opt = NMPlus(4, 0, 2, testing=True, **F64)
     fid = opt.fidelity_ss(np.ones(5), noisy=True)
     assert 0.0 <= fid <= 1.0 and abs(fid * 10 - round(fid * 10)) < 1e-12
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        LBFGS(4, 0, 2, testing=True, mesh=object(), **F64)
+    mesh = Mesh(["cpu"] * 2)
+    opt = LBFGS(4, 0, 2, testing=True, mesh=mesh, maxiter=5, **F64)
+    assert opt.mesh is mesh
+    x0s, keys = _t(_xs(4, 4)), prng.split(prng.key(1), 4)
+    res = opt._run_batch_sharded(x0s, keys)
+    assert res.x.shape == (4, 5) and bool((res.nfev > 0).all())
+    assert torch.equal(res.x[:2], opt._run_batch(x0s[:2], keys[:2]).x)
     with pytest.raises(NotImplementedError):
         NMPlus(4, 0, 2, testing=True, use_wass_cost=True, **F64)
     with pytest.raises(NotImplementedError):
