@@ -119,8 +119,12 @@ Phases:
    test_pallas's bars (atol 2e-6 + rtol 1e-5; an element past them must
    stay within 2 lr iters, the step Adam takes when a gradient within
    rounding of zero flips sign, and such elements may be at most the share
-   CRITIC_SHARE gives of all).  The bf16 critic kernel (fast_dot=True:
-   bfloat16 operands, float32 sums, wgmma) against
+   CRITIC_SHARE gives of all), and after 7 iterations at the shapes of
+   CRITIC_F32_SHAPES: a ragged one (A = 130, T = 300, h = 30: T no
+   multiple of the 100-row tile, h none of 4) and the widest width the
+   kernel takes at d + 1 = 9 (h = 157, A = 132, T = 129: a 10-row tile,
+   the gradient summed in shared memory).  The bf16 critic kernel
+   (fast_dot=True: bfloat16 operands, float32 sums, wgmma) against
    critic_train_plain(fast_dot=True) at those shapes and at a ragged one
    (A = 130, T = 300, h = 30: T no multiple of the 128-row tile, h none of
    8).  At iters = 1 from zero moments mu = 0.1 g, so this reads the
@@ -135,7 +139,9 @@ Phases:
    carries it on.  A functional gate on one line: the value loss
    mean((v - ret)^2) over the 1024 agents after 200 iterations from the
    bf16 kernel, the plain bf16 version and the float32 kernel; the bf16
-   kernel's within CRITIC_BF16_LOSS (relative) of the plain bf16 version's.
+   kernel's within CRITIC_BF16_LOSS (relative) of the plain bf16 version's,
+   the float32 kernel's within as much of CRITIC_F32_LOSS, the reading of
+   the kernel it replaced on the same inputs.
    Then all three kernels timed with CUDA events at the path's shapes
    (rollout A = 1024, T = 500, sweeps 4, ham_noisy, card-paced: the
    instance at h = 100 keeps each thread's column of W2 in registers; both
@@ -183,10 +189,12 @@ Phases:
     path's sweeps with the counts set to 0 just before: card-paced times by
     K, the marginal cost of a step (ns and SM cycles per step per 1024
     lanes; ps per element per step) as JSON lines, and both kernels timed
-    for the kernels line beside their plain versions and bounds.
+    for the kernels line beside their plain versions and their
+    issue-slot bounds (one operation a lane and cycle: both probes round
+    each multiply and add on its own, so no FFMA halves the count).
 11. shot noise (fid_noisy, draws 10) on the card: the N=7 NM and L-BFGS
-    pools (NOISY_POOL restarts, half the noiseless pools' size since phases
-    17 and 18 were added; the cut is printed) in the plain and the
+    pools (NOISY_POOL restarts, a quarter of the noiseless pools' size; the
+    cut is printed) in the plain and the
     adaptive protocol (adp_tol 0.05), NOISY_PPO_EPOCHS PPO epochs (one
     since phases 17 and 18 were added; two before) at N=7, 1024 agents,
     T=500 on the per-step loop (the fused rollout gated off);
@@ -288,8 +296,10 @@ Phases:
     .le store must hold exactly lbfgs under "7" and nmplus, snob and ppo
     under "0.0", "0.05" and "0.1", each cell 1 to 1000 finite controllers
     of width 8.  Then the collect's PPO kernels at its shapes against
-    their plain versions at phase 8's bars: the rollout at A=1, T=500,
-    h=100, ham noise, 5 sweeps, max_ep_len 1000; the bf16 critic at A=1,
+    their plain versions at phase 8's bars: the rollout at A=1,
+    T=COLLECT_HOLD_STEPS (a cut of the collect's 500; phase 7 holds
+    T=500), h=100, ham noise, 5 sweeps, max_ep_len 1000; the bf16 critic at
+    A=1,
     T=500, h=100 and iters 1, 7, 200.  (b) MCDataSim on that store (noises linspace(0, 0.1, 11),
     bootreps 100, seed 0, 1000 controllers): get_metrics_dict for the ten
     sets, 11M Hamiltonians; kernel 1's count must rise by at least the
@@ -363,7 +373,7 @@ Phases:
     beside the unsharded one.  (a) sharded_mc_metrics at the MC headline's
     full width (10,000 controllers, 2,500 a block, x 11 x 100, key(1)): all
     15 tensors bit-equal to phase 3's key(1) run and the same
-    rim_checksum.  (b) sharded_run_batch for L-BFGS and NM on ZOO_POOL
+    rim_checksum.  (b) sharded_run_batch for L-BFGS and NM on MESH_POOL
     restarts (keys from key(31), key(32)): twice, bit-equal; on a one-entry
     mesh bit-equal to _run_batch; the mean true fidelity within 5e-2 of the
     unsharded pool's.  (c) PPO_en at N=7, PPO_AGENTS agents (a quarter a
@@ -389,10 +399,9 @@ Phases:
     critic kernel's products against 989 TFLOP/s) and 3.35 TB/s, and
     library_ms: batched torch.linalg.eigh on the same matrices for kernels
     1-3, which computes the eigendecomposition only, none for the rollout
-    and critic kernels; the probes' bounds count a multiply and an add as
-    two operations over 67 TFLOP/s, the issue-slot bound at one operation
-    a lane and cycle printed beside it), then {"ok": true, "device":
-    {...}} as the last line.
+    and critic kernels; the probes' bounds are their issue-slot bounds,
+    "bound_by": "issue slots", phase 10 printing the 67 TFLOP/s bound
+    beside them), then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -418,6 +427,10 @@ TOL_SLICE = 1e-3
 TOL_GRAD_ORACLE = 1e-4
 KS_GATE = 0.12
 ZOO_POOL = 8192
+#: restarts of phase 18's sharded zoo pools, a quarter of ZOO_POOL: on one
+#: card each block repeats the lanes' straggler tail, and the bit-equalities
+#: the stage holds do not depend on the pool's size
+MESH_POOL = ZOO_POOL // 4
 #: the H100's float32 rate outside the tensor cores and its HBM rate (SXM
 #: part, 700 W)
 F32_PEAK = 67e12
@@ -443,6 +456,15 @@ PPO_AGENTS, PPO_STEPS = 1024, 500
 #: the critic kernel against its plain version: per iteration count, the
 #: largest share of elements (theta, mu, nu) past atol 2e-6 + rtol 1e-5
 CRITIC_SHARE = {7: 1e-5, 200: 1e-5}
+#: the float32 critic kernel's other holds, at CRITIC_SHARE[7] after 7
+#: iterations: (label, A, T, h, seed); d + 1 = 9
+CRITIC_F32_SHAPES = (
+    ("ragged", 130, 300, 30, 22),       # T, h no multiple of the tiles
+    ("widest", 132, 129, 157, 23))      # the widest h at d + 1 = 9
+#: the float32 critic kernel's value loss after 200 iterations on phase 7's
+#: inputs, as the kernel before its register-tiled redesign read it; the
+#: kernel must stay within CRITIC_BF16_LOSS of it (relative)
+CRITIC_F32_LOSS = 0.658637
 #: the bf16 critic kernel against the plain bf16 version: the gradient
 #: (iters = 1) relative to its largest element (3.3e-5 measured at the
 #: path's shapes, 6.7e-6 at the ragged one); the margin over twice the
@@ -1469,18 +1491,34 @@ def _critic_inputs(a_cnt, t_len, seed, hid=100):
                             dtype=torch.float32, device=dev))
 
 
-def _critic_loss(theta, obs, rets, h):
-    """The value loss mean((v - ret)^2) over all agents and rows of the
-    critics packed in ``theta``, in full float32."""
+def _hold_critic_f32(label, inputs, h, lr, shares):
+    """The float32 critic kernel against critic_train_plain on the card at
+    each iteration count of ``shares`` (the gates of phase 7 in the module
+    docstring).  Returns (the worst max abs error of theta, mu, nu, the
+    kernel's theta after the last count)."""
     from code_robchar_tpu_torch.ops import critic
 
-    a_cnt, t_len, d = obs.shape
-    w1, w2, w3 = critic._unpack(theta, d + 1, h)
-    ones = torch.ones((a_cnt, t_len, 1), dtype=obs.dtype, device=obs.device)
-    h1 = torch.tanh(torch.bmm(torch.cat([obs, ones], 2), w1))
-    h2 = torch.tanh(torch.bmm(torch.cat([h1, ones], 2), w2))
-    v = torch.bmm(torch.cat([h2, ones], 2), w3)[..., 0]
-    return float(((v - rets) ** 2).mean())
+    a_cnt, t_len = inputs[5].shape
+    worst = 0.0
+    for iters, share in shares.items():
+        got = critic.critic_train_packed(*inputs, h=h, iters=iters, lr=lr)
+        want = critic.critic_train_plain(*inputs, h=h, iters=iters, lr=lr)
+        torch.cuda.synchronize()
+        errs = [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])]
+        over = sum(int(((g - w).abs() > 2e-6 + 1e-5 * w.abs()).sum())
+                   for g, w in zip(got[:3], want[:3]))
+        total = 3 * got[0].numel()
+        ok = (torch.equal(got[3], want[3]) and max(errs) <= 2 * lr * iters
+              and over <= share * total)
+        print(f"critic kernel {label} A={a_cnt} T={t_len} h={h} "
+              f"iters={iters}: max |kernel-plain| theta, mu, nu {errs}; past "
+              f"atol 2e-6 + rtol 1e-5: {over} of {total} (at most {share:g} "
+              f"of them) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"critic kernel disagrees with its plain "
+                               f"version ({label}, iters={iters})")
+        worst = max(worst, *errs)
+    return worst, got[0]
 
 
 def _hold_critic_bf16(label, inputs, h, lr):
@@ -1551,43 +1589,36 @@ def phase_ppo_kernels():
 
     lr = 1e-3
     inputs = _critic_inputs(PPO_AGENTS, PPO_STEPS, seed=21)
-    for iters, share in CRITIC_SHARE.items():
-        got = critic.critic_train_packed(*inputs, h=100, iters=iters, lr=lr)
-        want = critic.critic_train_plain(*inputs, h=100, iters=iters, lr=lr)
-        torch.cuda.synchronize()
-        errs = [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])]
-        over = sum(int(((g - w).abs() > 2e-6 + 1e-5 * w.abs()).sum())
-                   for g, w in zip(got[:3], want[:3]))
-        total = 3 * got[0].numel()
-        ok = (torch.equal(got[3], want[3]) and max(errs) <= 2 * lr * iters
-              and over <= share * total)
-        print(f"critic kernel A={PPO_AGENTS} T={PPO_STEPS} iters={iters}: "
-              f"max |kernel-plain| theta, mu, nu {errs}; past atol 2e-6 + "
-              f"rtol 1e-5: {over} of {total} (at most {share:g} of them) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"critic kernel disagrees with its plain "
-                               f"version at iters={iters}")
-        worst["critic"] = max(worst["critic"], *errs)
-    f32_theta = got[0]                 # the float32 kernel after 200 iters
+    worst["critic"], f32_theta = _hold_critic_f32(
+        "at the path's shapes", inputs, 100, lr, CRITIC_SHARE)
+    for label, a_cnt, t_len, hid, seed in CRITIC_F32_SHAPES:
+        worst["critic"] = max(worst["critic"], _hold_critic_f32(
+            label, _critic_inputs(a_cnt, t_len, seed=seed, hid=hid), hid, lr,
+            {7: CRITIC_SHARE[7]})[0])
 
     worst["critic_bf16"], _, _ = _hold_critic_bf16(
         "ragged", _critic_inputs(130, 300, seed=22, hid=30), 30, lr)
     worst_path, bf16_theta, plain_theta = _hold_critic_bf16(
         "at the path's shapes", inputs, 100, lr)
     worst["critic_bf16"] = max(worst["critic_bf16"], worst_path)
-    losses = [_critic_loss(th, inputs[4], inputs[5], 100)
+    losses = [critic.value_loss(th, inputs[4], inputs[5], 100)
               for th in (inputs[0], bf16_theta, plain_theta, f32_theta)]
     ok = abs(losses[1] - losses[2]) <= CRITIC_BF16_LOSS * losses[2]
+    ok32 = abs(losses[3] - CRITIC_F32_LOSS) <= \
+        CRITIC_BF16_LOSS * CRITIC_F32_LOSS
     print(f"critic value loss mean((v - ret)^2), A={PPO_AGENTS} "
           f"T={PPO_STEPS}: start {losses[0]:.6f}; after 200 iterations bf16 "
           f"kernel {losses[1]:.6f}, plain bf16 {losses[2]:.6f}, float32 "
           f"kernel {losses[3]:.6f} (bf16 kernel within "
-          f"{CRITIC_BF16_LOSS:g} of plain bf16, relative) "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{CRITIC_BF16_LOSS:g} of plain bf16, relative; float32 kernel "
+          f"within as much of {CRITIC_F32_LOSS}) "
+          f"{'ok' if ok and ok32 else 'FAIL'}")
     if not ok:
         raise RuntimeError("the bf16 critic kernel's value loss is off its "
                            "plain version's")
+    if not ok32:
+        raise RuntimeError("the float32 critic kernel's value loss is off "
+                           "the earlier kernel's")
 
     # the path's shapes, held step by step as above (one plain pass), then
     # timed; the plain version is warm from the holds, so its one timed
@@ -1728,15 +1759,15 @@ def phase_ppo_path():
     # the float32 critic kernel's path: a full-precision regression from
     # the final state on the last epoch's visited controllers and rewards
     obs, rets = out.stores.contiguous(), out.rewards.contiguous()
-    before = _critic_loss(critic.pack_critic(st.params, a_cnt), obs, rets,
-                          100)
+    before = critic.value_loss(critic.pack_critic(st.params, a_cnt), obs,
+                               rets, 100)
     critic.LAUNCHES = 0
     params, vf_opt = critic.critic_train(st.params, st.vf_opt, obs, rets,
                                          iters=200, lr=1e-3, fast_dot=False)
     torch.cuda.synchronize()
     launches["critic"] = critic.LAUNCHES
     theta = critic.pack_critic(params, a_cnt)
-    after = _critic_loss(theta, obs, rets, 100)
+    after = critic.value_loss(theta, obs, rets, 100)
     print(f"float32 critic path: critic_train(fast_dot=False) on the final "
           f"state, {a_cnt} agents x {t_len} rows, 200 iterations: launches "
           f"{launches['critic']} (bf16 kernel still "
@@ -1918,22 +1949,27 @@ def phase_probes():
     alu_plain = _time_ms(lambda: probes.alu_probe_plain(x, 8, k_alu), 1)
     tanh_plain = _time_ms(
         lambda: probes.tanh_probe_plain(xt, "rational", k_tanh), 1)
-    alu_bound = _bound(probes.alu_ops(b, k_alu), 4 * b * (8 + 3))
-    tanh_bound = _bound(probes.tanh_ops(xt.numel(), "rational", k_tanh),
+    alu_flops = _bound(probes.alu_ops(b, k_alu), 4 * b * (8 + 3))
+    tanh_flops = _bound(probes.tanh_ops(xt.numel(), "rational", k_tanh),
                         2 * 4 * xt.numel())
-    # a multiply and an add each take an issue slot of an FP32 lane: 132
-    # SMs x 128 lanes x 1.98 GHz
+    # The bound is the issue-slot one: both probes round every multiply and
+    # every add on its own, to stay bit-equal to the TPU bodies (no FFMA can
+    # fuse a pair and halve the count), so each operation takes one issue
+    # slot of an FP32 lane: 132 SMs x 128 lanes x 1.98 GHz.  For the tanh
+    # probe it is still a floor: its IEEE division issues more than one
+    # instruction.  The 67 TFLOP/s bound (two operations an FFMA) is
+    # printed beside it for reference.
     slots = 132 * 128 * 1.98e9
-    alu_slot_ms = probes.alu_ops(b, k_alu) / slots * 1e3
-    tanh_slot_ms = probes.tanh_ops(xt.numel(), "rational", k_tanh) / slots \
-        * 1e3
+    alu_bound = (probes.alu_ops(b, k_alu) / slots * 1e3, "issue slots")
+    tanh_bound = (probes.tanh_ops(xt.numel(), "rational", k_tanh) / slots
+                  * 1e3, "issue slots")
     print(f"probe kernels: alu_probe 8 streams K={k_alu} B={b} {alu_ms:.5f} "
-          f"ms (plain {alu_plain:.3f} ms; bound {alu_bound[0]:.5f} ms "
-          f"({alu_bound[1]}, 67 TFLOP/s), {alu_slot_ms:.5f} ms at one "
-          f"operation an issue slot); tanh_probe rational K={k_tanh} "
-          f"{tuple(xt.shape)} {tanh_ms:.5f} ms (plain {tanh_plain:.3f} ms; "
-          f"bound {tanh_bound[0]:.5f} ms ({tanh_bound[1]}), "
-          f"{tanh_slot_ms:.5f} ms at one operation an issue slot)")
+          f"ms (plain {alu_plain:.3f} ms; bound {alu_bound[0]:.5f} ms at one "
+          f"operation an issue slot, {alu_flops[0]:.5f} ms ({alu_flops[1]}, "
+          f"67 TFLOP/s)); tanh_probe rational K={k_tanh} {tuple(xt.shape)} "
+          f"{tanh_ms:.5f} ms (plain {tanh_plain:.3f} ms; bound "
+          f"{tanh_bound[0]:.5f} ms at one operation an issue slot, "
+          f"{tanh_flops[0]:.5f} ms ({tanh_flops[1]}, 67 TFLOP/s))")
     return {"alu_probe": (launches["alu_probe"], worst["alu_probe"],
                           (alu_ms, alu_plain, alu_bound)),
             "tanh_probe": (launches["tanh_probe"], worst["tanh_probe"],
@@ -1941,9 +1977,9 @@ def phase_probes():
 
 
 #: restarts of the shot-noise phase's zoo pools (the width stays N = 7):
-#: ZOO_POOL until phases 17 and 18 were added, half of it since, to keep
-#: the whole run near half its limit
-NOISY_POOL = ZOO_POOL // 2
+#: a quarter of ZOO_POOL (half of it once phases 17 and 18 were added, all
+#: of it before), to keep the whole run near half its limit
+NOISY_POOL = ZOO_POOL // 4
 #: the shot-noise phase's PPO epochs: 2 until phases 17 and 18 were added
 NOISY_PPO_EPOCHS = 1
 #: the largest share of binomial draws on the card that may differ from the
@@ -2796,6 +2832,10 @@ def phase_single_point():
 #: runs' walls and rates are printed); 100,000 until phase 16 was added,
 #: 50,000 until phases 17 and 18 were
 PIPE_BUDGET = 25_000
+#: steps of the collect-shaped rollout hold (A=1, the collect's width), cut
+#: from the collect's T=500 (which phase 7 holds at A=1024): the hold's
+#: step-by-step plain pass took most of the phase's holds
+COLLECT_HOLD_STEPS = 125
 PAPER_BUDGET = 1_000_000
 PIPE_N, PIPE_OUT, PIPE_CONTROLLERS = 7, 6, 1000
 PIPE_NOISES = np.linspace(0, 0.1, 11)
@@ -3124,7 +3164,8 @@ def _collect():
 def _hold_collect_kernels():
     """The collect's PPO kernels at the shapes it gives them, against
     their plain versions at phase 8's bars: one agent (Experiment passes
-    no num_agents), T=500, h=100, ham noise, the float32 sweep count at
+    no num_agents), T=COLLECT_HOLD_STEPS (the collect's 500 steps, cut;
+    phase 7 holds T=500), h=100, ham noise, the float32 sweep count at
     N=7 and max_ep_len 1000 for the rollout; A=1, T=500, h=100 and 200
     iterations at vf_lr for the bf16 critic.  These launches are made
     outside the collect's count windows."""
@@ -3135,7 +3176,8 @@ def _hold_collect_kernels():
               maxtime=30.0, max_ep_len=1000, ham_noisy=True)
     rollout_err = _hold_rollout(
         "collect-shaped, ham_noisy=True",
-        _rollout_inputs(1, PPO_STEPS, True, seed=31), kw, free=False)
+        _rollout_inputs(1, COLLECT_HOLD_STEPS, True, seed=31), kw,
+        free=False)
     critic_err, _, _ = _hold_critic_bf16(
         "collect-shaped", _critic_inputs(1, PPO_STEPS, seed=32), 100, 1e-3)
     return {"rollout": rollout_err, "critic_bf16": critic_err}
@@ -3840,7 +3882,7 @@ MESH_ENTRIES = 4
 
 
 def _sharded_pool(mesh, cls, seed):
-    """One N=7 pool of ZOO_POOL restarts: the unsharded batch, the batch
+    """One N=7 pool of MESH_POOL restarts: the unsharded batch, the batch
     sharded over ``mesh`` twice, and over a one-entry mesh; each compared
     as the JAX package's tests/test_parallel.py does.  Returns the walls
     (unsharded, sharded) and the counts of the sharded runs."""
@@ -3848,9 +3890,9 @@ def _sharded_pool(mesh, cls, seed):
     from code_robchar_tpu_torch.parallel import Mesh, sharded_run_batch
 
     opt = _zoo_optimizer(cls)
-    x0s = torch.as_tensor(opt.init_points(ZOO_POOL), dtype=torch.float32,
+    x0s = torch.as_tensor(opt.init_points(MESH_POOL), dtype=torch.float32,
                           device="cuda")
-    keys = prng.split(prng.key(seed), ZOO_POOL)
+    keys = prng.split(prng.key(seed), MESH_POOL)
 
     def timed(fn):
         start = time.perf_counter()
@@ -3876,8 +3918,8 @@ def _sharded_pool(mesh, cls, seed):
           fid.min() >= -1e-5 and fid.max() <= 1 + 1e-5 and
           int(got.nfev.min()) > 0)
     moved = int((got.x != ref.x).any(1).sum())
-    print(f"mesh (b) {cls.name}: N=7 pool {ZOO_POOL} over {mesh.size} "
-          f"entries ({ZOO_POOL // mesh.size} a block): sharded {wall:.3f} / "
+    print(f"mesh (b) {cls.name}: N=7 pool {MESH_POOL} over {mesh.size} "
+          f"entries ({MESH_POOL // mesh.size} a block): sharded {wall:.3f} / "
           f"{wall2:.3f} s against unsharded {wall0:.3f} s (host-paced); two "
           f"sharded runs bit-equal {same}; one-entry mesh bit-equal to "
           f"_run_batch {one_same}; mean true fid sharded "

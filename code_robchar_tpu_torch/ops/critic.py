@@ -57,8 +57,10 @@ from code_robchar_tpu_torch.utils import build
 LAUNCHES = 0
 #: launches of csrc/critic_train_bf16.cu in this process
 LAUNCHES_BF16 = 0
-#: batch rows per tile of the kernel (mirrors kRows in critic_train.cu)
-ROWS = 16
+#: batch rows per tile of the float32 kernel at most (kMaxRows in
+#: critic_train.cu); its tiles are multiples of PATCH_ROWS (kPR), the rows
+#: of a thread's patch in the forward and dz1 products
+ROWS, PATCH_ROWS = 100, 10
 #: batch rows per tile of the bf16 kernel (kTileRows in critic_train_bf16.cu)
 ROWS_BF16 = 128
 #: the bf16 kernel's limits: d + 1 inputs in one k16 step, and the hidden
@@ -71,13 +73,46 @@ def n_params(d1: int, h: int) -> int:
     return d1 * h + (h + 1) * h + (h + 1)
 
 
-def smem_bytes(d1: int, h: int) -> int:
-    """Shared memory of one block of the kernel: the parameters and their
-    gradient (W2 with an odd leading dimension) and one row tile."""
-    ld2 = h + 1 - h % 2
-    params = d1 * h + (h + 1) * ld2 + (h + 1)
-    tile = ROWS * (d1 + 2 * (h + 1) + 2)
-    return 4 * (2 * params + tile)
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _smem_floats(d1: int, h: int, rows: int, ldw: int, xrows: int) -> int:
+    """Floats of one block of the float32 kernel (Layout in
+    critic_train.cu): W1 (d1 rows) and W2 (h + 1 rows, zero rows up to a
+    multiple of 4) in rows of ldw, w3; the gradient, packed; X (xrows x
+    round4(d1)); h1 and h2 / dz2 (twice rows x round4(h + 1)), v's partial
+    sums (rows x ceil(h / 4)), dv (rows), the returns (xrows); 16 floats of
+    slack."""
+    hr = _round4(h + 1)
+    params = d1 * ldw + hr * ldw + hr
+    tile = rows * (2 * hr + -(-h // 4) + 1) + xrows * (_round4(d1) + 1)
+    return params + _round4(n_params(d1, h)) + tile + 16
+
+
+def tile_layout(d1: int, h: int, t_len: int):
+    """(rows, ldw, xrows) the float32 kernel takes (choose_layout in
+    critic_train.cu): the largest row tile, a multiple of PATCH_ROWS, at
+    most ROWS and t_len rounded up, that fits in a block's shared memory;
+    for it X of the whole batch (t_len rounded up to the tile) where that
+    fits, else of one tile; W rows of an odd number of float4s where that
+    fits, else of round4(h).  None when not even PATCH_ROWS rows fit."""
+    top = PATCH_ROWS * -(-min(t_len, ROWS) // PATCH_ROWS)
+    for rows in range(top, 0, -PATCH_ROWS):
+        for xrows in (rows * -(-t_len // rows), rows):
+            for ldw in (4 * (-(-h // 4) | 1), _round4(h)):
+                if 4 * _smem_floats(d1, h, rows, ldw, xrows) \
+                        <= build.SMEM_PER_BLOCK:
+                    return rows, ldw, xrows
+    return None
+
+
+def smem_bytes(d1: int, h: int, t_len: int = ROWS) -> int:
+    """Shared memory of one block of the float32 kernel on t_len rows: of
+    the layout tile_layout picks, or, where none fits, of the smallest
+    one (a tile of PATCH_ROWS, W rows of round4(h))."""
+    lay = tile_layout(d1, h, t_len) or (PATCH_ROWS, _round4(h), PATCH_ROWS)
+    return 4 * _smem_floats(d1, h, *lay)
 
 
 def smem_bytes_bf16(d1: int, h: int) -> int:
@@ -160,6 +195,19 @@ def critic_train_plain(theta, mu, nu, count, obs, rets, *, h: int,
     return theta, mu, nu, count + iters
 
 
+def value_loss(theta, obs, rets, h: int) -> float:
+    """The value loss mean((v - ret)^2) over all agents and rows of the
+    critics packed in ``theta`` (A, P), on obs (A, T, d) and rets (A, T),
+    in the run's dtype."""
+    a_cnt, t_len, d = obs.shape
+    w1, w2, w3 = _unpack(theta, d + 1, h)
+    ones = torch.ones((a_cnt, t_len, 1), dtype=obs.dtype, device=obs.device)
+    h1 = torch.tanh(torch.bmm(torch.cat([obs, ones], 2), w1))
+    h2 = torch.tanh(torch.bmm(torch.cat([h1, ones], 2), w2))
+    v = torch.bmm(torch.cat([h2, ones], 2), w3)[..., 0]
+    return float(((v - rets) ** 2).mean())
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -206,7 +254,8 @@ def check_critic_args(theta, mu, nu, count, obs, rets, *, h: int,
         raise ValueError(f"the bf16 critic kernel takes at most "
                          f"{MAX_D1_BF16 - 1} inputs and a width of "
                          f"{MAX_H_BF16}; got d={d}, h={h}")
-    need = smem_bytes_bf16(d + 1, h) if fast_dot else smem_bytes(d + 1, h)
+    need = (smem_bytes_bf16(d + 1, h) if fast_dot
+            else smem_bytes(d + 1, h, max(t_len, 1)))
     if h < 1 or t_len < 1 or need > build.SMEM_PER_BLOCK:
         raise ValueError(f"critic of width {h} on {t_len} rows: the "
                          f"parameters and their gradient must fit in one "

@@ -401,12 +401,19 @@ def test_rollout_kernel_matches_plain_version(dev, n, hid, ham_noisy):
     assert bool(got.timeout.any())
 
 
-@pytest.mark.parametrize("hid,t_len", [(16, 37), (100, 64)])
-def test_critic_kernel_matches_plain_version(dev, hid, t_len):
+@pytest.mark.parametrize("hid,t_len,a_cnt,share", [
+    (16, 37, 5, 0.0), (100, 64, 5, 0.0),
+    # ragged (T no multiple of the 100-row tile, h none of 4) and the
+    # widest width at d + 1 = 9 (a 10-row tile, the gradient summed in
+    # shared memory), at chip_smoke.py's bars: a share of 1e-5 of the
+    # elements may be past atol 2e-6 + rtol 1e-5 (a gradient within
+    # rounding of zero that flips sign moves its element by lr a step)
+    (30, 300, 130, 1e-5), (157, 129, 132, 1e-5)])
+def test_critic_kernel_matches_plain_version(dev, hid, t_len, a_cnt, share):
     from code_robchar_tpu_torch.ops import critic
 
     rng = np.random.default_rng(hid)
-    a_cnt, d = 5, 8
+    d = 8
     p = critic.n_params(d + 1, hid)
     f32 = dict(dtype=torch.float32, device=dev)
     theta = torch.as_tensor(rng.normal(0, 0.2, (a_cnt, p)), **f32)
@@ -422,8 +429,11 @@ def test_critic_kernel_matches_plain_version(dev, hid, t_len):
     want = critic.critic_train_plain(theta, mu, nu, count, obs, rets, **kw)
     torch.cuda.synchronize()
     assert critic.LAUNCHES == before + 1
+    over = 0
     for g, w in zip(got[:3], want[:3]):
-        assert bool(((g - w).abs() <= 2e-6 + 1e-5 * w.abs()).all())
+        over += int(((g - w).abs() > 2e-6 + 1e-5 * w.abs()).sum())
+        assert float((g - w).abs().max()) <= 2 * 1e-3 * 7
+    assert over <= share * 3 * got[0].numel(), over
     assert torch.equal(got[3], count + 7)
 
 

@@ -254,6 +254,38 @@ def test_value_regression_matches_optax_loop():
     assert loop_opt.count.tolist() == [iters] * 3
 
 
+def _f32_args(a_cnt, t_len, d, h):
+    p = critic.n_params(d + 1, h)
+    f = torch.zeros((a_cnt, p), dtype=torch.float32)
+    return (f, f, f, torch.zeros(a_cnt, dtype=torch.int32),
+            torch.zeros((a_cnt, t_len, d), dtype=torch.float32),
+            torch.zeros((a_cnt, t_len), dtype=torch.float32))
+
+
+def _earlier_smem_bytes(d1, h):
+    """Shared memory of the float32 kernel before its register-tiled
+    redesign (its parameters and gradient with W2 rows of an odd stride, a
+    tile of 16 rows)."""
+    ld2 = h + 1 - h % 2
+    params = d1 * h + (h + 1) * ld2 + (h + 1)
+    return 4 * (2 * params + 16 * (d1 + 2 * (h + 1) + 2))
+
+
+@pytest.mark.parametrize("d1", [1, 2, 3, 9, 16, 64, 500, 3000, 3222])
+def test_critic_f32_kernel_takes_every_earlier_shape(d1):
+    """Every width the float32 kernel took before its redesign (its
+    earlier layout within a block's shared memory) is still taken, at one
+    batch row and at a long batch."""
+    widths = [h for h in range(1, 200)
+              if _earlier_smem_bytes(d1, h) <= build.SMEM_PER_BLOCK]
+    assert widths == list(range(1, len(widths) + 1))
+    for h in widths[::7] + widths[-3:]:
+        for t_len in (1, 4096):
+            assert critic.tile_layout(d1, h, t_len) is not None, (h, t_len)
+            critic.check_critic_args(*_f32_args(1, t_len, d1 - 1, h), h=h,
+                                     fast_dot=False)
+
+
 def test_critic_pack_round_trip():
     rng = np.random.default_rng(2)
     p = ac.init_params(torch.as_tensor(rng.integers(0, 2**32, (2, 2))), 5,
@@ -263,7 +295,21 @@ def test_critic_pack_round_trip():
     back = critic.unpack_critic(p, packed, 6, 7)
     for k in p:
         assert torch.equal(back[k], p[k])
-    assert critic.smem_bytes(9, 100) < build.SMEM_PER_BLOCK // 2
+    # the float32 kernel's layout (Layout in critic_train.cu) at the PPO
+    # path's shape: W1, W2 (104 rows) and w3 in rows of 100 floats, the
+    # packed gradient, a tile of 100 rows (h1, h2 / dz2 of 104 columns, v's
+    # 25 partial sums, dv) and the whole batch (X of 12 columns, returns)
+    assert critic.tile_layout(9, 100, 500) == (100, 100, 500)
+    assert critic.smem_bytes(9, 100, 500) == 4 * (
+        (9 * 100 + 104 * 100 + 104) + 11104 + 100 * (2 * 104 + 25 + 1)
+        + 500 * (12 + 1) + 16)
+    # the widest critic at d + 1 = 9 runs: a tile of 10 rows
+    assert critic.tile_layout(9, 157, 129) == (10, 164, 10)
+    args = _f32_args(1, 129, 8, 157)
+    critic.check_critic_args(*args, h=157, fast_dot=False)
+    with pytest.raises(ValueError, match="shared memory"):
+        critic.check_critic_args(*_f32_args(1, 129, 8, 200), h=200,
+                                 fast_dot=False)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
