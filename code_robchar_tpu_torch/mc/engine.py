@@ -37,6 +37,7 @@ from code_robchar_tpu_torch.metrics.rim import (compute_dkw_error,
                                                 wd_from_ideal_zero)
 from code_robchar_tpu_torch.metrics.stats import metric_registry
 from code_robchar_tpu_torch.ops import cuda_jacobi, noise, prng, propagate
+from code_robchar_tpu_torch.utils import trace
 
 #: elements per chunk on the CPU (keeps an x64 chunk's working set small)
 DEFAULT_CHUNK = 8192
@@ -67,23 +68,31 @@ def _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin, out_spin,
     sweep draws what the unsharded sweep draws for those elements."""
     num_c = ctrl.shape[0]
     c_global = num_c if c_global is None else c_global
-    cell = ids // bootreps
-    l_idx, c_idx = cell // num_c, cell % num_c
-    gids = (l_idx * c_global + c_idx + c_offset) * bootreps + ids % bootreps
-    keys = prng.fold_in(key, gids)
-    xs, scales = ctrl[c_idx], noises[l_idx]
-    if not use_jacobi:
-        # the element kernel of the JAX package's LAPACK path: the complex
-        # perturbation of the same keys, then a complex eigh
-        h0c = h0r.to(config.complex_dtype(h0r.dtype))
-        z = noise.structured_perturbation(keys, h0r.shape[-1], scales,
-                                          complex_offdiag, dtype=h0c.dtype)
-        return propagate.fidelity_from_controller(h0c + z, xs, in_spin,
-                                                  out_spin)
-    ar, ai, t = noise.assemble_lanes(h0r, xs, scales, keys, complex_offdiag)
-    return cuda_jacobi.fidelity_herm(ar, ai, t, in_spin, out_spin)
+    with trace.span("mc.draws"):
+        cell = ids // bootreps
+        l_idx, c_idx = cell // num_c, cell % num_c
+        gids = (l_idx * c_global + c_idx + c_offset) * bootreps \
+            + ids % bootreps
+        keys = prng.fold_in(key, gids)
+        xs, scales = ctrl[c_idx], noises[l_idx]
+        if not use_jacobi:
+            # the element kernel of the JAX package's LAPACK path: the
+            # complex perturbation of the same keys, then a complex eigh
+            h0c = h0r.to(config.complex_dtype(h0r.dtype))
+            z = noise.structured_perturbation(keys, h0r.shape[-1], scales,
+                                              complex_offdiag,
+                                              dtype=h0c.dtype)
+        else:
+            ar, ai, t = noise.assemble_lanes(h0r, xs, scales, keys,
+                                             complex_offdiag)
+    with trace.span("mc.kernel"):
+        if not use_jacobi:
+            return propagate.fidelity_from_controller(h0c + z, xs, in_spin,
+                                                      out_spin)
+        return cuda_jacobi.fidelity_herm(ar, ai, t, in_spin, out_spin)
 
 
+@trace.spanned("mc.sweep")
 def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
                       bootreps: int, in_spin: int, out_spin: int,
                       complex_offdiag: bool = True,
@@ -109,15 +118,16 @@ def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
     total = num_l * num_c * bootreps
     out = torch.empty(total, dtype=h0r.dtype, device=h0r.device)
     for start in range(0, total, chunk):
-        ids = torch.arange(start, min(start + chunk, total),
-                           device=h0r.device)
-        out[start:start + len(ids)] = _fids(h0r, ctrl, noises, key, ids,
-                                            bootreps, in_spin, out_spin,
-                                            complex_offdiag, use_jacobi,
-                                            c_offset, c_global)
+        with trace.span("mc.chunk"):
+            ids = torch.arange(start, min(start + chunk, total),
+                               device=h0r.device)
+            out[start:start + len(ids)] = _fids(
+                h0r, ctrl, noises, key, ids, bootreps, in_spin, out_spin,
+                complex_offdiag, use_jacobi, c_offset, c_global)
     return out.reshape(num_l, num_c, bootreps)
 
 
+@trace.spanned("mc.sweep")
 def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
                     bootreps: int, in_spin: int, out_spin: int,
                     complex_offdiag: bool = True,
@@ -142,14 +152,18 @@ def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
     total = cells * bootreps
     parts = []
     for start in range(0, total, step):
-        ids = torch.arange(start, min(start + step, total),
-                           device=h0r.device)
-        fids = _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin,
-                     out_spin, complex_offdiag, use_jacobi, c_offset,
-                     c_global)
-        parts.append(metric_tensors(fids.reshape(-1, bootreps), alpha))
-    return {k: torch.cat([p[k] for p in parts]).reshape(num_l, num_c)
-            for k in parts[0]}
+        with trace.span("mc.chunk"):
+            ids = torch.arange(start, min(start + step, total),
+                               device=h0r.device)
+            fids = _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin,
+                         out_spin, complex_offdiag, use_jacobi, c_offset,
+                         c_global)
+            with trace.span("mc.reduce"):
+                parts.append(metric_tensors(fids.reshape(-1, bootreps),
+                                            alpha))
+    with trace.span("mc.gather"):
+        return {k: torch.cat([p[k] for p in parts]).reshape(num_l, num_c)
+                for k in parts[0]}
 
 
 def _rim_sortless(fids: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ from code_robchar_tpu_torch import config
 from code_robchar_tpu_torch.models import objectives, optim
 from code_robchar_tpu_torch.ops import chain, cuda_jacobi, noise as noise_ops
 from code_robchar_tpu_torch.ops import prng, realform, sobol
+from code_robchar_tpu_torch.utils import trace
 from code_robchar_tpu_torch.utils.record import RunRecord, TopControllers
 from code_robchar_tpu_torch.utils.timeout import Deadline
 
@@ -383,6 +384,7 @@ class ControlOptimizer:
                                   max(per_restart * mul, 1))))
         return k
 
+    @trace.spanned("zoo.run")
     def run(self):
         """The reference's run() contract (qnewton.py:464-632), batched."""
         deadline = Deadline(self.timeout)
@@ -452,16 +454,18 @@ class ControlOptimizer:
                     [x0s, np.repeat(x0s[-1:], k_sched - k, axis=0)])
             x0s = torch.as_tensor(x0s, dtype=self.dtype, device=self.device)
             keys = prng.split(self.next_key(), k_sched)
-            if shard_this:
-                res = self._run_batch_sharded(x0s, keys)
-            else:
-                res = self._run_batch(x0s, keys)
+            with trace.span("zoo.batch"):
+                if shard_this:
+                    res = self._run_batch_sharded(x0s, keys)
+                else:
+                    res = self._run_batch(x0s, keys)
 
-            xs = res.x[:k].cpu().numpy()
-            fids = res.fid[:k].cpu().numpy()
-            true_fids = res.true_fid[:k].cpu().numpy()
-            funccalls += int(res.nfev[:k].sum())
-            iters += int(res.nit[:k].sum())
+            with trace.span("zoo.fetch"):
+                xs = res.x[:k].cpu().numpy()
+                fids = res.fid[:k].cpu().numpy()
+                true_fids = res.true_fid[:k].cpu().numpy()
+                funccalls += int(res.nfev[:k].sum())
+                iters += int(res.nit[:k].sum())
             reps_done += k
 
             if self.verbose:
@@ -485,9 +489,10 @@ class ControlOptimizer:
                 if self.landscape_exploration:
                     top.offer_many(fids, xs)
                     if res.cand_fid is not None:
-                        cf = res.cand_fid[:k].cpu().numpy().reshape(-1)
-                        cx = res.cand_x[:k].cpu().numpy().reshape(cf.size,
-                                                                  -1)
+                        with trace.span("zoo.fetch"):
+                            cf = res.cand_fid[:k].cpu().numpy().reshape(-1)
+                            cx = res.cand_x[:k].cpu().numpy().reshape(
+                                cf.size, -1)
                         top.offer_many(cf, cx)
                 i = int(fids.argmax())
                 prev = rr.record["best_fid"]

@@ -37,6 +37,7 @@ import torch
 from code_robchar_tpu_torch.models import objectives
 from code_robchar_tpu_torch.models.base import BatchResult, ControlOptimizer
 from code_robchar_tpu_torch.ops import prng
+from code_robchar_tpu_torch.utils import trace
 
 _M = 10          # history pairs (scipy default)
 _C1 = 1e-4       # Armijo sufficient decrease
@@ -151,94 +152,101 @@ def _batched_restarts(x0_pool, key, value_and_grad_b, lower, upper, maxiter,
 
     while True:
         syncs += 1
-        if not bool(live.any()):
+        with trace.span("lbfgs.sync"):
+            any_live = bool(live.any())
+        if not any_live:
             break
         rounds += 1
-        active = live & ~fresh
-        direction = _two_loop_batch(g, s_hist, y_hist, rho, hist_len)
-        gd = (g * direction).sum(-1)
-        direction = torch.where((gd < 0)[:, None], direction, -g)
+        with trace.span("lbfgs.round"):
+            active = live & ~fresh
+            direction = _two_loop_batch(g, s_hist, y_hist, rho, hist_len)
+            gd = (g * direction).sum(-1)
+            direction = torch.where((gd < 0)[:, None], direction, -g)
 
-        # Armijo backtracking with box projection: each trial evaluates one
-        # candidate per lane, and the search ends once every active lane
-        # has accepted.  Fresh lanes (direction 0, so the candidate is
-        # their start) take their initial (f, g) from the first trial,
-        # which therefore always runs (active | fresh == live here).
-        need_fresh = fresh & live
-        step = torch.ones(L, dtype=dt, device=dev)
-        x_new, f_new, g_new = x, f, g
-        accepted = torch.zeros(L, dtype=torch.bool, device=dev)
-        tries = 0
-        while True:
-            key, kk = prng.split(key)
-            cands = clip(x + step[:, None] * direction)
-            fc, gc, cc = value_and_grad_b(cands, kk)
-            dd = (g * (cands - x)).sum(-1)
-            ok = fc <= f + _C1 * dd
-            take = ~accepted & active
-            fresh_now = need_fresh if tries == 0 else torch.zeros_like(live)
-            got = (take & ok) | fresh_now
-            x_new = torch.where((take & ok)[:, None], cands, x_new)
-            f_new = torch.where(got, fc, f_new)
-            g_new = torch.where(got[:, None], gc, g_new)
-            accepted = accepted | (ok & active)
-            billed = take | fresh_now
-            nfev = nfev + torch.where(billed, cc, 0)
-            ncall = ncall + torch.where(billed, calls_per_eval, 0)
-            step = torch.where(take, step * 0.5, step)
-            tries += 1
-            trials += 1
-            if tries >= _MAX_BACKTRACK:
-                break
-            syncs += 1
-            if not bool((~accepted & active).any()):
-                break
+            # Armijo backtracking with box projection: each trial evaluates
+            # one candidate per lane, and the search ends once every active
+            # lane has accepted.  Fresh lanes (direction 0, so the candidate is
+            # their start) take their initial (f, g) from the first trial,
+            # which therefore always runs (active | fresh == live here).
+            need_fresh = fresh & live
+            step = torch.ones(L, dtype=dt, device=dev)
+            x_new, f_new, g_new = x, f, g
+            accepted = torch.zeros(L, dtype=torch.bool, device=dev)
+            tries = 0
+            while True:
+                with trace.span("lbfgs.trial"):
+                    key, kk = prng.split(key)
+                    cands = clip(x + step[:, None] * direction)
+                    fc, gc, cc = value_and_grad_b(cands, kk)
+                    dd = (g * (cands - x)).sum(-1)
+                    ok = fc <= f + _C1 * dd
+                    take = ~accepted & active
+                    fresh_now = (need_fresh if tries == 0
+                                 else torch.zeros_like(live))
+                    got = (take & ok) | fresh_now
+                    x_new = torch.where((take & ok)[:, None], cands, x_new)
+                    f_new = torch.where(got, fc, f_new)
+                    g_new = torch.where(got[:, None], gc, g_new)
+                    accepted = accepted | (ok & active)
+                    billed = take | fresh_now
+                    nfev = nfev + torch.where(billed, cc, 0)
+                    ncall = ncall + torch.where(billed, calls_per_eval, 0)
+                    step = torch.where(take, step * 0.5, step)
+                    tries += 1
+                    trials += 1
+                    if tries >= _MAX_BACKTRACK:
+                        break
+                    syncs += 1
+                    with trace.span("lbfgs.sync"):
+                        pending = bool((~accepted & active).any())
+                    if not pending:
+                        break
 
-        s = x_new - x
-        y = g_new - g
-        s_hist, y_hist, rho, hist_len = _push_history_batch(
-            s_hist, y_hist, rho, hist_len, s, y, active & accepted)
+            s = x_new - x
+            y = g_new - g
+            s_hist, y_hist, rho, hist_len = _push_history_batch(
+                s_hist, y_hist, rho, hist_len, s, y, active & accepted)
 
-        converged = (proj_grad_norm(x_new, g_new) < _PGTOL) | \
-            ((f - f_new).abs() <= _FTOL * torch.clamp_min(
-                torch.maximum(f.abs(), f_new.abs()), 1.0)) | ~accepted
+            converged = (proj_grad_norm(x_new, g_new) < _PGTOL) | \
+                ((f - f_new).abs() <= _FTOL * torch.clamp_min(
+                    torch.maximum(f.abs(), f_new.abs()), 1.0)) | ~accepted
 
-        upd = active & accepted
-        x_cur = torch.where(upd[:, None], x_new, x)
-        f_cur = torch.where(fresh | upd, f_new, f)
-        g_cur = torch.where((fresh | upd)[:, None], g_new, g)
-        nit = nit + active.to(torch.int32)
-        done = done | (converged & active)
-        finished = active & (done | (nit >= maxiter) | (ncall >= maxfun))
+            upd = active & accepted
+            x_cur = torch.where(upd[:, None], x_new, x)
+            f_cur = torch.where(fresh | upd, f_new, f)
+            g_cur = torch.where((fresh | upd)[:, None], g_new, g)
+            nit = nit + active.to(torch.int32)
+            done = done | (converged & active)
+            finished = active & (done | (nit >= maxiter) | (ncall >= maxfun))
 
-        # scatter finished restarts into the output buffers (dummy row R
-        # takes the unfinished lanes' writes)
-        tgt = torch.where(finished, idx, R)
-        out_x.index_copy_(0, tgt, x_cur)
-        out_f.index_copy_(0, tgt, f_cur)
-        out_nfev.index_copy_(0, tgt, nfev)
-        out_nit.index_copy_(0, tgt, nit)
+            # scatter finished restarts into the output buffers (dummy row R
+            # takes the unfinished lanes' writes)
+            tgt = torch.where(finished, idx, R)
+            out_x.index_copy_(0, tgt, x_cur)
+            out_f.index_copy_(0, tgt, f_cur)
+            out_nfev.index_copy_(0, tgt, nfev)
+            out_nit.index_copy_(0, tgt, nit)
 
-        # refill finished lanes with the next unassigned pool starts
-        slot = next_i + torch.cumsum(finished, 0) - 1
-        refill = finished & (slot < R)
-        slot_c = torch.clamp_max(slot, R - 1)
-        rz = refill[:, None]
-        x = torch.where(rz, x0_pool[slot_c], x_cur)
-        f = torch.where(refill, 0.0, f_cur)
-        g = torch.where(rz, 0.0, g_cur)
-        s_hist = torch.where(rz[:, :, None], 0.0, s_hist)
-        y_hist = torch.where(rz[:, :, None], 0.0, y_hist)
-        rho = torch.where(rz, 0.0, rho)
-        hist_len = torch.where(refill, 0, hist_len)
-        nfev = torch.where(refill, 0, nfev)
-        ncall = torch.where(refill, 0, ncall)
-        nit = torch.where(refill, 0, nit)
-        done = done & ~refill
-        idx = torch.where(refill, slot_c, idx)
-        live = (live & ~finished) | refill
-        fresh = refill
-        next_i = next_i + finished.sum()
+            # refill finished lanes with the next unassigned pool starts
+            slot = next_i + torch.cumsum(finished, 0) - 1
+            refill = finished & (slot < R)
+            slot_c = torch.clamp_max(slot, R - 1)
+            rz = refill[:, None]
+            x = torch.where(rz, x0_pool[slot_c], x_cur)
+            f = torch.where(refill, 0.0, f_cur)
+            g = torch.where(rz, 0.0, g_cur)
+            s_hist = torch.where(rz[:, :, None], 0.0, s_hist)
+            y_hist = torch.where(rz[:, :, None], 0.0, y_hist)
+            rho = torch.where(rz, 0.0, rho)
+            hist_len = torch.where(refill, 0, hist_len)
+            nfev = torch.where(refill, 0, nfev)
+            ncall = torch.where(refill, 0, ncall)
+            nit = torch.where(refill, 0, nit)
+            done = done & ~refill
+            idx = torch.where(refill, slot_c, idx)
+            live = (live & ~finished) | refill
+            fresh = refill
+            next_i = next_i + finished.sum()
 
     return _PoolResult(out_x[:R], out_f[:R], out_nfev[:R], out_nit[:R],
                        rounds, trials, syncs)

@@ -77,6 +77,7 @@ from code_robchar_tpu_torch.ops import critic as critic_ops
 from code_robchar_tpu_torch.ops import cuda_jacobi, noise as noise_ops
 from code_robchar_tpu_torch.ops import prng, realform
 from code_robchar_tpu_torch.ops import rollout as rollout_ops
+from code_robchar_tpu_torch.utils import trace
 from code_robchar_tpu_torch.utils.record import RunRecord, TopControllers
 from code_robchar_tpu_torch.utils.timeout import Deadline
 
@@ -537,60 +538,69 @@ class PPO_en:
             return (env_st, obs_f, ep_len.to(torch.int32), keys_out), traj, \
                 steps
 
+        @trace.spanned("ppo.epoch")
         def epoch(st: AgentState):
             noise = float(self.env.noise)
             self._stage("start")
             with torch.no_grad():
-                (env_st, obs_f, ep_len, keys), traj, step_calls = rollout(
-                    st, noise)
-                obs, act, rew, obs2, done, timeout = traj      # (T, A, ...)
-                t_len, a_cnt = rew.shape
-                self._stage("rollout")
+                with trace.span("ppo.rollout"):
+                    (env_st, obs_f, ep_len, keys), traj, step_calls = \
+                        rollout(st, noise)
+                    obs, act, rew, obs2, done, timeout = traj  # (T, A, ...)
+                    t_len, a_cnt = rew.shape
+                    self._stage("rollout")
 
                 # true fidelities for the whole trajectory in one batch
-                stores = obs2.reshape(t_len * a_cnt, d)
-                true_fid = sym_fid(rollout_ops.hamiltonian_lanes(
-                    h0, stores[:, :n].T), stores[:, n]).reshape(t_len, a_cnt)
-                self._stage("true_fid")
+                with trace.span("ppo.true_fid"):
+                    stores = obs2.reshape(t_len * a_cnt, d)
+                    true_fid = sym_fid(rollout_ops.hamiltonian_lanes(
+                        h0, stores[:, :n].T), stores[:, n])
+                    true_fid = true_fid.reshape(t_len, a_cnt)
+                    self._stage("true_fid")
 
                 # values and logps of the visited obs, bootstrap values of
                 # the next obs, in batched forwards per agent
-                obs_af = obs.transpose(0, 1).contiguous()
-                act_af = act.transpose(0, 1).contiguous()
-                mu, log_std, val = ac.apply(st.params, obs_af)
-                logp = ac.gaussian_logp(mu, log_std[:, None, :], act_af)
-                vboot = ac.critic(st.params, obs2.transpose(0, 1)).T
-                boot = torch.where(done & ~timeout, 0.0, vboot)
-                boundaries = done | timeout
-                # epoch end always closes the open trajectory
-                boundaries[-1] = True
-                advs, rets = gae_and_returns(rew, val.T, boundaries, boot,
-                                             gamma, lam)
-                std = advs.std(0, correction=0, keepdim=True)
-                advs = (advs - advs.mean(0, keepdim=True)) / torch.clamp_min(
-                    std, 1e-8)
-                self._stage("values")
+                with trace.span("ppo.values"):
+                    obs_af = obs.transpose(0, 1).contiguous()
+                    act_af = act.transpose(0, 1).contiguous()
+                    mu, log_std, val = ac.apply(st.params, obs_af)
+                    logp = ac.gaussian_logp(mu, log_std[:, None, :], act_af)
+                    vboot = ac.critic(st.params, obs2.transpose(0, 1)).T
+                    boot = torch.where(done & ~timeout, 0.0, vboot)
+                    boundaries = done | timeout
+                    # epoch end always closes the open trajectory
+                    boundaries[-1] = True
+                    with trace.span("ppo.gae"):
+                        advs, rets = gae_and_returns(rew, val.T, boundaries,
+                                                     boot, gamma, lam)
+                    std = advs.std(0, correction=0, keepdim=True)
+                    advs = (advs - advs.mean(0, keepdim=True)) / \
+                        torch.clamp_min(std, 1e-8)
+                    self._stage("values")
                 if self.use_wass_value_targets:
-                    rets = -wass_targets(obs, keys, noise)
-                    self._stage("wass_targets")
+                    with trace.span("ppo.wass_targets"):
+                        rets = -wass_targets(obs, keys, noise)
+                        self._stage("wass_targets")
                 rets_af = rets.T.contiguous()
 
-            params, pi_opt, kl, pi_iters = policy_update(
-                st.params, st.pi_opt, obs_af, act_af, advs.T.contiguous(),
-                logp, iters=train_pi_iters, clip_ratio=clip_ratio,
-                lr=pi_lr, target_kl=target_kl)
-            self._stage("pi")
-            if fused_critic:
-                with torch.no_grad():
-                    params, vf_opt = critic_ops.critic_train(
+            with trace.span("ppo.pi"):
+                params, pi_opt, kl, pi_iters = policy_update(
+                    st.params, st.pi_opt, obs_af, act_af,
+                    advs.T.contiguous(), logp, iters=train_pi_iters,
+                    clip_ratio=clip_ratio, lr=pi_lr, target_kl=target_kl)
+                self._stage("pi")
+            with trace.span("ppo.critic"):
+                if fused_critic:
+                    with torch.no_grad():
+                        params, vf_opt = critic_ops.critic_train(
+                            params, st.vf_opt, obs_af, rets_af,
+                            iters=train_v_iters, lr=vf_lr,
+                            fast_dot=dev.type == "cuda")
+                else:
+                    params, vf_opt = value_regression(
                         params, st.vf_opt, obs_af, rets_af,
-                        iters=train_v_iters, lr=vf_lr,
-                        fast_dot=dev.type == "cuda")
-            else:
-                params, vf_opt = value_regression(
-                    params, st.vf_opt, obs_af, rets_af, iters=train_v_iters,
-                    lr=vf_lr)
-            self._stage("critic")
+                        iters=train_v_iters, lr=vf_lr)
+                self._stage("critic")
             st = AgentState(params=params, pi_opt=pi_opt, vf_opt=vf_opt,
                             env=env_st, obs=obs_f, ep_len=ep_len, key=keys)
             fcalls = torch.full((a_cnt, t_len), mul, dtype=torch.int32,
@@ -627,6 +637,7 @@ class PPO_en:
 
     # ---------------------------------------------------------------- run
 
+    @trace.spanned("ppo.run")
     def run(self, seed=0, epochs=1000000, steps_per_epoch=500,
             clip_ratio=0.2, pi_lr=3e-3, vf_lr=1e-3, max_ep_len=1000,
             train_pi_iters=200, train_v_iters=200, target_kl=0.01,
@@ -660,10 +671,12 @@ class PPO_en:
 
         for epoch_i in range(epochs):
             st, out = epoch_fn(st)
-            rew = out.rewards.cpu().numpy().reshape(-1)
-            true = out.true_fids.cpu().numpy().reshape(-1)
-            stores = out.stores.cpu().numpy().reshape(-1, self.nspin + 1)
-            fc = out.fcalls.cpu().numpy().reshape(-1)
+            with trace.span("ppo.fetch"):
+                rew = out.rewards.cpu().numpy().reshape(-1)
+                true = out.true_fids.cpu().numpy().reshape(-1)
+                stores = out.stores.cpu().numpy()
+                stores = stores.reshape(-1, self.nspin + 1)
+                fc = out.fcalls.cpu().numpy().reshape(-1)
             # the reference's iterations currency counts ONLY the value
             # loop — `iterations += train_v_iters` per epoch (ppo.py:485);
             # one epoch here is e reference runs in lockstep

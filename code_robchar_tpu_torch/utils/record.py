@@ -1,8 +1,8 @@
 """The optimizer record protocol and top-controller store.
 
-A copy of code_robchar_tpu/utils/record.py: framework-free host
-code, which the port cannot import from the JAX package (importing any
-of it pulls in jax).
+A copy of code_robchar_tpu/utils/record.py (host code, which the port
+cannot import from the JAX package: importing any of it pulls in jax),
+with program spans (utils/trace.py) on ``offer_many`` and ``save``.
 
 Every optimizer in the reference populates ``self.record`` with the keys
 {time_to_get_fid, func_calls, iterations, repeats, best_fid, controller
@@ -19,6 +19,8 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+from code_robchar_tpu_torch.utils import trace
 
 
 class TopControllers:
@@ -44,6 +46,7 @@ class TopControllers:
             self._store.pop(min(self._store))
             self._store[fid] = controller
 
+    @trace.spanned("record.offers")
     def offer_many(self, fids, controllers) -> None:
         for f, c in zip(fids, controllers):
             self.offer(float(f), list(map(float, c)))
@@ -73,6 +76,7 @@ class RunRecord:
     records: Dict = field(default_factory=dict)
     _update_counter: float = 0.0
 
+    @trace.spanned("record.save")
     def save(self, *, func_calls: int, iterations, repeats, controller,
              best_fid: float, top: Optional[TopControllers] = None) -> None:
         """One ``save_controller_data_aux`` equivalent (qnewton.py:571-585)."""
