@@ -12,15 +12,55 @@ controller sets captured every ``records_update_rate`` calls
 (qnewton.py:102-115).  This module centralises that protocol so the five
 model families share one implementation instead of the reference's five
 copies of ``save_controller_data_aux``.
+
+``TopControllers.offer_many`` offers a whole batch (PPO offers an epoch's
+512,000 pairs at once) without replaying every pair through ``offer``.  It
+is exact: the store ends with the keys, the first-stored key objects
+(``-0.0`` against ``0.0``), the controllers and the insertion order that
+the pair-by-pair loop gives.  The argument, under ``offer``'s rules (when
+full, evict the minimum, then insert unconditionally; an equal key
+overwrites in place):
+
+- Once the store holds ``capacity - 1`` entries it never holds fewer.
+  Call its *floor* the least key that an offer leaves in it: the second
+  least key of a full store, the least of one with ``capacity - 1``
+  entries (none: +inf).  An offer whose key ``f`` lies strictly below the
+  floor leaves the store full with ``f`` its strict minimum, so the next
+  offer ``g`` pops ``f``.  Without ``f``, ``g``'s offer pops the same
+  least key of a full store that ``f``'s did, or finds room in one of
+  ``capacity - 1`` entries, and the store after ``g`` is the same dict,
+  whatever ``g`` is: new, equal to a stored key, equal to the popped key
+  or equal to ``f``.  So ``f`` can be dropped, if another offer follows:
+  the batch's last offer is always kept.
+- An offer taken with a key at or above a floor ``m`` leaves every key but
+  a full store's least at or above ``m``, so the floor never falls below
+  a reading of it while only such offers are taken.  One reading at the
+  start of a chunk and one vectorised comparison with it find offers of
+  the chunk that may be dropped.  (The floor of a full store is its second
+  least key because the store keeps its newest offer even when that is
+  the worst: its minimum is often a fresh low offer.)
+- NaN compares false with everything, and a store holding one has no
+  order to rely on: a batch with a NaN key, or offered to a store holding
+  one, is replayed whole.
+
+Two counters watch the filter: ``offered`` (pairs handed to
+``offer_many``) and ``replayed`` (pairs it passed to ``offer``).
 """
 
 from __future__ import annotations
 
+import heapq
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from code_robchar_tpu_torch.utils import trace
+
+#: ``offer_many``'s first chunk; each later chunk is twice the one before
+FIRST_CHUNK = 1024
 
 
 class TopControllers:
@@ -31,11 +71,16 @@ class TopControllers:
     overwrite — preserved deliberately for parity with shipped .le files
     which were produced that way), evicting the minimum-fidelity entry once
     ``capacity`` is reached.
+
+    ``offered`` and ``replayed`` count the pairs ``offer_many`` was given
+    and the pairs it passed on to ``offer`` (module docstring).
     """
 
     def __init__(self, capacity: int):
         self.capacity = capacity
         self._store: Dict[float, List[float]] = {}
+        self.offered = 0
+        self.replayed = 0
 
     def offer(self, fid: float, controller: List[float]) -> None:
         if len(self._store) < self.capacity:
@@ -48,8 +93,54 @@ class TopControllers:
 
     @trace.spanned("record.offers")
     def offer_many(self, fids, controllers) -> None:
-        for f, c in zip(fids, controllers):
-            self.offer(float(f), list(map(float, c)))
+        """Offer the pairs ``zip(fids, controllers)`` in order, with the
+        result of offering them one by one (module docstring).
+
+        The batch is walked in chunks of ``FIRST_CHUNK`` pairs, doubling.
+        While the store holds fewer than ``capacity - 1`` entries each pair
+        is replayed; after that a chunk reads the store's floor once, drops
+        the chunk's pairs whose key lies below it, except the batch's last,
+        and replays the rest.  A batch with a NaN key, or offered to a
+        store holding one, is replayed whole.  ``offered`` grows by the
+        batch's pairs, ``replayed`` by those replayed.
+        """
+        f = np.asarray(fids, dtype=np.float64).reshape(-1)
+        n = min(len(f), len(controllers))
+        self.offered += n
+
+        def replay(i):
+            self.offer(float(f[i]), list(map(float, controllers[i])))
+
+        if np.isnan(f[:n]).any() or any(k != k for k in self._store):
+            for i in range(n):
+                replay(i)
+            self.replayed += n
+            return
+        i, step = 0, FIRST_CHUNK
+        while i < n:
+            end = min(n, i + step)
+            step *= 2
+            while i < end and len(self._store) < self.capacity - 1:
+                replay(i)
+                self.replayed += 1
+                i += 1
+            if i == end:
+                continue
+            keep = i + np.flatnonzero(~(f[i:end] < self._floor()))
+            if end == n and (not keep.size or keep[-1] != n - 1):
+                keep = np.append(keep, n - 1)
+            for k in keep.tolist():
+                replay(k)
+            self.replayed += keep.size
+            i = end
+
+    def _floor(self) -> float:
+        """The least key an offer leaves in a store of at least
+        ``capacity - 1`` entries (module docstring)."""
+        low = heapq.nsmallest(2, self._store)
+        if len(self._store) >= self.capacity:
+            low = low[1:]
+        return low[0] if low else math.inf
 
     def controllers(self) -> List[List[float]]:
         return list(self._store.values())
