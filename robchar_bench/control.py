@@ -7,10 +7,17 @@ and the control, in one process.
 For each seed: the cell's set-up, ``K`` units of its timed path at the
 cell's own size (the mix's ``traced_units`` by default), then the
 reference's readings of those outputs (``program``) and of the control
-(``control``: the reference computed in TF32, the precision below the
-configuration's float32 with TF32 off, put in the program's place).  One
-JSON line a seed, then the largest program reading and the smallest control
-reading of each number.  Needs the cell's device (the card).
+(``control``: the reference computed in the precision just below the one
+its configuration states, put in the program's place).  Which control goes
+with which ``dtype`` (TF32 off in both):
+
+- float32: the reference with every operand rounded to TF32 (the PPO
+  critic's bf16 operands to float8 e4m3);
+- float64 (the ``mc`` driver, ``drivers/mc.CONTROLS``): the reference with
+  every operand rounded to float32.
+
+One JSON line a seed, then the largest program reading and the smallest
+control reading of each number.  Needs the cell's device (the card).
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 port's fused Monte-Carlo sweep.
 
 Set-up draws the cell's controllers from the seed (numpy; biases and times
-uniform in the configuration's box, float32) and uploads them with the
-noise levels.  A unit is one ``mc.engine.characterise(...,
+uniform in the configuration's box, in float64, then cast to the
+configuration's ``dtype``) and uploads them with the noise levels and the
+drift, in that dtype.  A unit is one ``mc.engine.characterise(...,
 return_fids=False)`` over every noise level x controller x bootstrap rep
 of the configuration, keyed by fold_in(key(seed), unit), with the metric
 tensors copied to the host: a user's characterisation of one controller
@@ -13,7 +14,9 @@ The check draws a sample of (unit, noise level, controller) cells from the
 seed and works each out again with reference/mc.py: the draws, the
 assembly, the fidelities and the 15 metric values.  The readings are the
 widest gaps of the program's values from the reference's, by metric
-family.
+family.  The reference draws in the configuration's dtype and computes in
+float64; the control is the reference computed one precision below the
+configuration's (``CONTROLS``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ FAMILIES = {"rim_gap": ref.RIM, "std_gap": "std",
 Q_PREFIX = "Q th."
 #: the key of the warm-up unit (no unit of a window takes it)
 WARM_UNIT = 2**32 - 1
+#: the control of each configuration dtype: the reference in the precision
+#: just below it (reference/physics.py)
+CONTROLS = {"float32": "tf32", "float64": "float32"}
 
 
 def inputs(cfg: Dict, mix: Dict, seed: int) -> Dict:
@@ -43,8 +49,9 @@ def inputs(cfg: Dict, mix: Dict, seed: int) -> Dict:
     rng = np.random.default_rng(seed)
     ctrl = np.column_stack([rng.uniform(*box["bias"], (count, n)),
                             rng.uniform(*box["time"], count)])
-    return {"controllers": ctrl.astype(np.float32),
-            "noises": np.asarray(cfg["mc"]["noise_levels"], np.float32),
+    dtype = np.dtype(cfg["dtype"])
+    return {"controllers": ctrl.astype(dtype),
+            "noises": np.asarray(cfg["mc"]["noise_levels"], dtype),
             "seed": int(seed)}
 
 
@@ -55,8 +62,8 @@ def setup(cfg: Dict, mix: Dict, seed: int, device) -> Job:
     device = torch.device(device)
     program = {
         "device": device,
-        "h0": chain.xx_hamiltonian_real(cfg["n"], dtype=torch.float32,
-                                        device=device),
+        "h0": chain.xx_hamiltonian_real(
+            cfg["n"], dtype=getattr(torch, cfg["dtype"]), device=device),
         "controllers": torch.as_tensor(inp["controllers"], device=device),
         "noises": torch.as_tensor(inp["noises"], device=device),
     }
@@ -108,8 +115,9 @@ def sample(cfg: Dict, mix: Dict, seed: int, units: int) -> np.ndarray:
 def readings(cfg: Dict, mix: Dict, inputs: Dict, outs: List[Dict],
              control: bool = False) -> Dict[str, float]:
     """The widest gap of each continuous metric family over the sampled
-    cells, of the program's values (``control``: the TF32 reference's) from
-    the float64 reference's, and ``q_share``: the share of the sampled
+    cells, of the program's values (``control``: the reference's in the
+    precision below the configuration's, ``CONTROLS``) from the float64
+    reference's, and ``q_share``: the share of the sampled
     quantile-yield values that differ by more than half a sample (a yield
     moves in steps of 1 / bootreps, so one fidelity that crosses a
     threshold by a rounding moves it a whole step)."""
@@ -123,10 +131,12 @@ def readings(cfg: Dict, mix: Dict, inputs: Dict, outs: List[Dict],
         args = (key, cfg["n"], cfg["in_site"], cfg["out_site"],
                 inputs["controllers"], inputs["noises"], mc["controllers"],
                 mc["bootreps"], lc)
-        want = ref.metrics(ref.fidelities(*args), mc["dkw_alpha"])
+        want = ref.metrics(ref.fidelities(*args, dtype=cfg["dtype"]),
+                           mc["dkw_alpha"])
         if control:
-            got = ref.metrics(ref.fidelities(*args, precision="tf32"),
-                              mc["dkw_alpha"])
+            got = ref.metrics(ref.fidelities(
+                *args, precision=CONTROLS[cfg["dtype"]], dtype=cfg["dtype"]),
+                mc["dkw_alpha"])
         else:
             got = {k: v[lc[:, 0], lc[:, 1]] for k, v in outs[u].items()}
         for k in want:

@@ -18,7 +18,9 @@ sweep over L levels, C controllers and B reps, with the sweep's key K:
   clip(F - eps, 0, 1) and "lower" from clip(F + eps, 0, 1), eps =
   sqrt(log(2 / alpha) / (2 B)) (the .mcm schema's naming).
 
-Every draw is worked out again from the key with reference/threefry.py.
+Every draw is worked out again from the key with reference/threefry.py,
+in the configuration's dtype: a float32 configuration's normals come from
+JAX's 32-bit uniforms, a float64 one's from its x64 uniforms.
 """
 
 from __future__ import annotations
@@ -45,17 +47,21 @@ def metric_names():
 
 
 def fidelities(key, n, in_site, out_site, controllers, noises, num_c,
-               bootreps, cells, precision="float64") -> np.ndarray:
+               bootreps, cells, precision="float64",
+               dtype="float32") -> np.ndarray:
     """Fidelities (len(cells), bootreps) of the lattice cells ``cells``
     ((K, 2) of (l, c)) of a sweep keyed by ``key`` (uint32 (2,)) over
-    ``num_c`` controllers."""
+    ``num_c`` controllers, whose draws are of ``dtype``: "float32" (JAX's
+    32-bit uniforms, sigma rounded to float32) or "float64" (its x64
+    uniforms, sigma as given).  ``precision`` as physics.fidelity's."""
     cells = np.asarray(cells, dtype=np.int64)
     l_idx, c_idx = cells[:, 0], cells[:, 1]
     gids = ((l_idx * num_c + c_idx)[:, None] * bootreps
             + np.arange(bootreps)[None, :])
     keys = threefry.fold_in(key, gids)                  # (K, B, 2)
-    z = threefry.normal(threefry.split(keys, 3), n)     # (K, B, 3, n)
-    sigma = np.asarray(noises, dtype=np.float32).astype(np.float64)[l_idx]
+    normal = {"float32": threefry.normal, "float64": threefry.normal64}[dtype]
+    z = normal(threefry.split(keys, 3), n)              # (K, B, 3, n)
+    sigma = np.asarray(noises, dtype=dtype).astype(np.float64)[l_idx]
     z = z * sigma[:, None, None, None]
     x = np.asarray(controllers, dtype=np.float64)[c_idx]  # (K, n + 1)
     h = np.zeros(z.shape[:2] + (n, n), dtype=np.complex128)

@@ -1,5 +1,5 @@
 """Transfer fidelities of the XX spin chain in plain NumPy: the references'
-physics, and its TF32 control.
+physics, and its controls.
 
     F = |<out| exp(-i T H) |in>|^2 = |sum_k V[out, k] conj(V[in, k])
                                       exp(-i T lam_k)|^2
@@ -8,11 +8,16 @@ from ``numpy.linalg.eigh`` of H in float64 (complex128 for Hermitian H).
 The drift is the single-excitation XX chain: couplings 1 between
 neighbours, no field (arXiv:2207.07801, Sec. II).
 
-``precision="tf32"`` is the control that a correctness check has to fail:
-the same computation with every operand rounded to TF32 (10 explicit
-mantissa bits, round to nearest even), the precision just below the
-float32 that the configurations state with TF32 off.  The eigensolver
-itself runs in float64 between the roundings of its inputs and outputs.
+``precision`` names the control that a correctness check has to fail: the
+same computation with every operand rounded to the precision just below the
+configuration's ``dtype`` (complex parts each):
+
+- ``"tf32"`` for a float32 configuration (TF32 off): 10 explicit mantissa
+  bits, round to nearest even;
+- ``"float32"`` for a float64 configuration.
+
+The eigensolver itself runs in float64 between the roundings of its inputs
+and outputs.  ``"float64"`` rounds nothing: the reference.
 """
 
 from __future__ import annotations
@@ -31,8 +36,20 @@ def tf32(x):
     return bits.astype(np.uint32).view(np.float32).astype(np.float64)
 
 
+def f32(x):
+    """``x`` rounded to float32, returned as float64 (complex parts each)."""
+    x = np.asarray(x)
+    if np.iscomplexobj(x):
+        return x.astype(np.complex64).astype(np.complex128)
+    return x.astype(np.float32).astype(np.float64)
+
+
+#: the rounding of each precision
+_ROUNDINGS = {"float64": lambda x: x, "float32": f32, "tf32": tf32}
+
+
 def _round(x, precision):
-    return tf32(x) if precision == "tf32" else x
+    return _ROUNDINGS[precision](x)
 
 
 def xx_chain(n: int) -> np.ndarray:

@@ -19,7 +19,12 @@ again from the seed with this copy of the same construction:
   [nextafter(-1, 0), 1), ops/prng.py:219-224, with SciPy's exact erfinv
   in float64 where the port takes XLA's float32 polynomial (the two part by
   at most ~1.5e-5 relative in the tails: a rounding of the program's, not
-  of the reference's).
+  of the reference's);
+- ``uniform64`` and ``normal64``: the same under JAX's x64 construction,
+  for a float64 configuration: the top 52 bits of the 64-bit draw
+  (w0 << 32 | w1) filled into [1, 2), ops/prng.py:133-136, then the same
+  shift and SciPy's exact erfinv in float64 (XLA's float64 polynomial
+  parts from it by up to ~4e-10 relative in the tails).
 
 Keys are uint32 arrays of shape (..., 2).  NumPy's uint32 arithmetic wraps
 modulo 2**32, which is the hash's own arithmetic.
@@ -90,9 +95,27 @@ def uniform32(k: np.ndarray, count: int, lo: float = 0.0,
     return np.maximum(unit * (hi32 - lo32) + lo32, lo32)
 
 
+def uniform64(k: np.ndarray, count: int, lo: float = 0.0,
+              hi: float = 1.0) -> np.ndarray:
+    """float64 uniforms (..., count) in [lo, hi) from keys (..., 2)."""
+    b0, b1 = _counter_words(k, count)
+    bits = ((b0.astype(np.uint64) << np.uint64(32) | b1) >> np.uint64(12)
+            ) | np.uint64(0x3FF0000000000000)
+    unit = bits.view(np.float64) - 1.0
+    lo64, hi64 = np.float64(lo), np.float64(hi)
+    return np.maximum(unit * (hi64 - lo64) + lo64, lo64)
+
+
 def normal(k: np.ndarray, count: int) -> np.ndarray:
     """Standard normals (..., count), float64, from the float32 uniforms of
     ``jax.random.normal``'s construction."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform32(k, count, float(lo), 1.0).astype(np.float64)
     return np.sqrt(2.0) * special.erfinv(u)
+
+
+def normal64(k: np.ndarray, count: int) -> np.ndarray:
+    """Standard normals (..., count), float64, from the float64 uniforms of
+    ``jax.random.normal``'s x64 construction."""
+    lo = np.nextafter(-1.0, 0.0)
+    return np.sqrt(2.0) * special.erfinv(uniform64(k, count, lo, 1.0))

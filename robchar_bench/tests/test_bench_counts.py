@@ -19,6 +19,29 @@ def test_kernel_counts_equal_the_smoke_runs(n):
     assert herm_jacobi.nbytes(n) * 131072 == 4 * 131072 * (2 * n * n + 2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sweeps_and_bytes_follow_the_dtype(dtype):
+    import torch
+
+    from code_robchar_tpu_torch.ops import realform
+
+    for n in range(2, 11):
+        assert herm_jacobi.sweeps(dtype, n) == \
+            realform._sweeps_for(getattr(torch, dtype), n)
+        size = getattr(torch, dtype).itemsize
+        assert herm_jacobi.nbytes(n, size) == size * (2 * n * n + 2)
+    assert herm_jacobi.sweeps("float32", 7) == herm_jacobi.SWEEPS
+    with pytest.raises(ValueError):
+        herm_jacobi.sweeps("bfloat16", 7)
+
+
+def test_float64_term_of_the_bound():
+    assert peaks.F64_PEAK == 34e12
+    assert peaks.bound_s(0.0, 0.0, 0.0, 34e12) == pytest.approx(1.0)
+    assert peaks.bound_s(67e12, 0.0, 0.0, 34e12) == pytest.approx(2.0)
+    assert peaks.bound_s(1e9, 3.35e12, 0.0, 1e9) == pytest.approx(1.0)
+
+
 def test_peaks_and_bound_equal_the_smoke_runs():
     assert (peaks.F32_PEAK, peaks.HBM_RATE, peaks.BF16_PEAK) == \
         (chip_smoke.F32_PEAK, chip_smoke.HBM_RATE, chip_smoke.BF16_PEAK)

@@ -76,18 +76,49 @@ def test_every_cell_finds_its_files(cell):
         assert lim["lower"] < lim["limit"] < lim["upper"], name
 
 
+#: the precisions a configuration may state (TF32 off in both); the
+#: drivers' controls follow them (drivers/mc.CONTROLS)
+DTYPES = ("float32", "float64")
+
+
+def _states_its_problem(entry, cfg):
+    """Assert that configuration file ``cfg`` states the problem of its
+    BENCHMARK.json entry ``entry``."""
+    assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
+    assert cfg["reduced"] == entry["reduced"] == []
+    assert cfg["dtype"] in DTYPES and cfg["tf32"] is False
+    assert 0 <= cfg["in_site"] < cfg["n"] and \
+        0 <= cfg["out_site"] < cfg["n"]
+    assert len(cfg["mc"]["noise_levels"]) == 11
+    assert cfg["mc"]["bootreps"] == 100
+
+
 def test_configs_state_their_problem():
     used = {w["config"] for w in BENCH["workloads"]}
     for c in BENCH["configs"]:
         assert c["name"] in used
-        cfg = harness.load_json(os.path.join(harness.ROOT, c["file"]))
-        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert cfg["reduced"] == c["reduced"] == []
-        assert cfg["dtype"] == "float32" and cfg["tf32"] is False
-        assert 0 <= cfg["in_site"] < cfg["n"] and \
-            0 <= cfg["out_site"] < cfg["n"]
-        assert len(cfg["mc"]["noise_levels"]) == 11
-        assert cfg["mc"]["bootreps"] == 100
+        _states_its_problem(
+            c, harness.load_json(os.path.join(harness.ROOT, c["file"])))
+
+
+def _made_up(**changes):
+    entry = BENCH["configs"][0]
+    cfg = harness.load_json(os.path.join(harness.ROOT, entry["file"]))
+    return entry, {**cfg, **changes}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_configuration_of_either_dtype_is_admitted(dtype):
+    _states_its_problem(*_made_up(dtype=dtype, tf32=False))
+
+
+@pytest.mark.parametrize("changes", [
+    {"dtype": "float16"}, {"dtype": "bfloat16"}, {"dtype": "complex128"},
+    {"dtype": "float64", "tf32": True}, {"dtype": "float32", "tf32": True},
+    {"tf32": None}], ids=str)
+def test_a_made_up_configuration_is_refused(changes):
+    with pytest.raises(AssertionError):
+        _states_its_problem(*_made_up(**changes))
 
 
 def test_files_under_paths_are_named_from_names():
