@@ -11,7 +11,9 @@ or, where no such file is, ``metrics/<prefix>.py`` for the part of the name
 before its first dot, which one quantity split by cell shares); each cell's
 limits are a file of their own (``robchar_bench/limits/<cell>.json``).  A
 cell, a mix or a metric is added by adding files and entries, never by
-editing one.
+editing a file.  A new cell also appends its name to the ``workloads``
+list of each existing metric that it reports, in ``BENCHMARK.json``; no
+other field of an existing entry changes.
 
 A run: set-up (the driver makes the inputs from the seed and builds the
 program's objects), a warm-up over every shape the cell uses, then a
