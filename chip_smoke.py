@@ -727,10 +727,74 @@ def _mc_inputs():
     return h0, ctrl, noises
 
 
+def _hold_draw_kernel():
+    """The chunk draw kernel (csrc/mc_draw_lanes.cu) against its plain
+    version, the torch route on the card: (ar, ai, t) bit for bit at n=7 on
+    headline chunks (the first, one mid-lattice, the partial last, a mesh
+    block's) with complex and real couplings; then both timed on a full
+    chunk of 131,072 (the kernel card-paced), bound by the bytes it writes,
+    2 n^2 + 1 floats a matrix, at the HBM rate.  Returns (max |kernel -
+    plain|, (kernel ms, plain ms, bound))."""
+    from code_robchar_tpu_torch.ops import mc_draws, prng
+
+    dev = torch.device("cuda")
+    h0, ctrl, noises = _mc_inputs()
+    h0, ctrl, noises = (torch.as_tensor(x, device=dev).contiguous()
+                        for x in (h0, ctrl, noises))
+    key = prng.fold_in(prng.key(2**33 + 7, device=dev), 3)
+    n, b, reps = MC_N, 131072, MC_BOOTREPS
+    total = MC_NOISES * MC_CONTROLLERS * reps
+    half = MC_CONTROLLERS // 2
+    cases = (("first", ctrl, 0, b, 0), ("mid", ctrl, 5_000_037, b, 0),
+             ("last", ctrl, total - 12_345, 12_345, 0),
+             ("block", ctrl[half:].contiguous(), 3_000_001, b, half))
+    worst = 0.0
+    for label, block, start, count, offset in cases:
+        for cx in (True, False):
+            args = (h0, block, noises, key, start, count, reps, cx, offset,
+                    MC_CONTROLLERS)
+            got = mc_draws.draw_lanes_cuda(*args)
+            want = mc_draws.draw_lanes_plain(*args)
+            torch.cuda.synchronize()
+            apart = sum(int((g.view(torch.int32) != w.view(torch.int32))
+                            .sum()) for g, w in zip(got, want))
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            worst = max(worst, err)
+            print(f"draw kernel n={n} {label} chunk (start {start}, "
+                  f"{count} elements, c_offset {offset}, complex {cx}): "
+                  f"values differing in any bit {apart}, max|kernel-plain| "
+                  f"{err:.3e} {'ok' if apart == 0 else 'FAIL'}")
+            if apart:
+                raise RuntimeError(f"the draw kernel differs from the torch "
+                                   f"route ({label}, complex {cx})")
+    args = (h0, ctrl, noises, key, 0, b, reps, True, 0, MC_CONTROLLERS)
+    before = mc_draws.LAUNCHES
+    timings = {}
+    for label, fn, reps_t in (
+            ("plain", lambda: mc_draws.draw_lanes_plain(*args), 3),
+            ("kernel", lambda: mc_draws.draw_lanes_cuda(*args), 100),
+            ("kernel", lambda: mc_draws.draw_lanes_cuda(*args), 100),
+            ("plain", lambda: mc_draws.draw_lanes_plain(*args), 3)):
+        timings.setdefault(label, []).append(
+            _time_ms(fn, reps_t, behind_spin=label == "kernel"))
+    launched = mc_draws.LAUNCHES - before
+    ms, plain_ms = min(timings["kernel"]), min(timings["plain"])
+    bound = _bound(0.0, 4 * b * (2 * n * n + 1))
+    print(f"timing draw kernel n={n} B={b}: kernel {timings['kernel']} ms "
+          f"(card-paced), plain {timings['plain']} ms (min {ms:.4f} vs "
+          f"{plain_ms:.3f} ms); bound {bound[0]:.4f} ms ({bound[1]}, "
+          f"{2 * n * n + 1} floats a matrix written), share "
+          f"{100 * bound[0] / ms:.1f}%; launches {launched} (202 timed)")
+    if launched != 202:
+        raise RuntimeError(f"the timed draw kernel launched {launched} times")
+    return worst, (ms, plain_ms, bound)
+
+
 def phase_main_path():
     from code_robchar_tpu_torch.mc import engine
-    from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+    from code_robchar_tpu_torch.ops import cuda_jacobi, mc_draws, prng
 
+    draw = _hold_draw_kernel()
     n, n_ctrl, n_noise, bootreps = MC_N, MC_CONTROLLERS, MC_NOISES, \
         MC_BOOTREPS
     total = n_ctrl * n_noise * bootreps
@@ -741,7 +805,7 @@ def phase_main_path():
         return engine.mc_metric_sweep(h0, ctrl, noises, prng.key(k),
                                       bootreps, 0, 6, **kwargs)
 
-    cuda_jacobi.LAUNCHES = 0
+    cuda_jacobi.LAUNCHES = mc_draws.LAUNCHES = 0
     warm = run(0)
     float(warm[engine.RIM_NAME].sum())
     times, checksum, first = [], None, None
@@ -752,14 +816,16 @@ def phase_main_path():
         times.append(time.perf_counter() - start)
         if checksum is None:
             checksum, first = cs, metrics
-    launches = cuda_jacobi.LAUNCHES
+    launches, draws = cuda_jacobi.LAUNCHES, mc_draws.LAUNCHES
     wall = statistics.median(times)
     print(f"main path: N={n} {n_ctrl} controllers x {n_noise} noise levels x "
           f"{bootreps} bootreps = {total} Hamiltonians; wall {times} s, "
           f"median {wall:.4f} s, {total / wall:.1f} Hams/s; kernel launches "
-          f"{launches} over 4 runs")
-    if launches <= 0:
-        raise RuntimeError("the main path launched no CUDA kernel")
+          f"{launches} over 4 runs, draw kernel launches {draws}")
+    if launches <= 0 or draws != launches:
+        raise RuntimeError(f"the main path launched kernel 1 {launches} "
+                           f"times and the draw kernel {draws} times: one "
+                           f"of each a chunk expected")
 
     for name, v in first.items():
         if v.shape != (n_noise, n_ctrl) or not bool(torch.isfinite(v).all()):
@@ -787,7 +853,7 @@ def phase_main_path():
         if err > TOL_SLICE:
             raise RuntimeError(f"main path disagrees with the f64 plain "
                                f"path on {name!r}: {err}")
-    return launches, wall, total / wall, checksum, first
+    return launches, wall, total / wall, checksum, first, draws, draw
 
 
 def _sym_cases(rng, n, b):
@@ -4091,11 +4157,22 @@ def _run(phase, *args):
     return out
 
 
+def _run_drawing(phase, *args):
+    """``_run(phase, *args)`` with the draw kernel's count set to 0 just
+    before: (its result, the draw kernel's launches in the phase)."""
+    from code_robchar_tpu_torch.ops import mc_draws
+
+    mc_draws.LAUNCHES = 0
+    out = _run(phase, *args)
+    return out, mc_draws.LAUNCHES
+
+
 def main():
     smi = _run(phase_device)
     res = _run(phase_build)
     err, ms, plain_ms, lib_ms, bound = _run(phase_kernel)
-    launches, wall, rate, checksum, mc_first = _run(phase_main_path)
+    launches, wall, rate, checksum, mc_first, draws, draw = \
+        _run(phase_main_path)
     zoo_err, zoo_ms, floor = _run(phase_zoo_kernels)
     zoo_launches, zoo = _run(phase_zoo_path, zoo_err)
     ks = _run(phase_zoo_gates)
@@ -4106,10 +4183,11 @@ def main():
     noisy = _run(phase_shot_noise)
     adam_snob_launches, adam_snob = _run(phase_adam_snob, zoo_err)
     sp_launches, sp = _run(phase_single_point)
-    pipe_launches, pipe = _run(phase_pipeline)
-    fig_launches, fig = _run(phase_figures)
+    (pipe_launches, pipe), pipe_draws = _run_drawing(phase_pipeline)
+    (fig_launches, fig), fig_draws = _run_drawing(phase_figures)
     snobfit_launches, snobfit = _run(phase_snobfit, zoo_err)
-    mesh_launches = _run(phase_mesh, mc_first, wall, zoo_err, ppo_err)
+    mesh_launches, mesh_draws = _run_drawing(phase_mesh, mc_first, wall,
+                                              zoo_err, ppo_err)
     src = "code_robchar_tpu_torch/csrc/"
 
     def entry(name, replaces, n_launch, max_err, times, lib):
@@ -4151,6 +4229,9 @@ def main():
     for name in zoo_launches:
         zoo_launches[name] += snobfit_launches[name] + mesh_launches[name]
     launches += mesh_launches["herm_jacobi_fidelity"]
+    # the draw kernel runs once before each of kernel 1's launches on the
+    # card (mc/engine._fids), in the same phases
+    draws += pipe_draws + fig_draws + mesh_draws
     ppo_launches["rollout"] += mesh_launches["actor_env_rollout"]
     ppo_launches["critic_bf16"] += mesh_launches["critic_train_bf16"]
     ppo_launches["critic"] += mesh_launches["critic_train"]
@@ -4159,6 +4240,8 @@ def main():
         entry("herm_jacobi_fidelity",
               "code_robchar_tpu/ops/pallas_jacobi.py:209", launches, err,
               (ms, plain_ms, bound), lib_ms),
+        entry("mc_draw_lanes", "none (XLA ops: code_robchar_tpu/mc/"
+              "engine.py:69)", draws, *draw, None),
         zoo_entry("sym_jacobi_amp_group", amp_at),
         zoo_entry("sym_jacobi_amp", amp_at, amp_ms),
         zoo_entry("sym_jacobi_grad_group", grad_at),
@@ -4203,6 +4286,9 @@ def main():
           + ", ".join(f"{k} {v:.2f}" for k, v in snobfit.items())
           + f" restarts/s; card {smi}")
     print(json.dumps({"kernels": kernels}))
+    if draws != launches:
+        raise RuntimeError(f"the path phases launched the draw kernel "
+                           f"{draws} times and kernel 1 {launches} times")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,9 @@ b, flattened as ``gid = (l*C + c)*B + b`` — the sweep draws a structured
 perturbation from ``fold_in(key, gid)`` (split into the diagonal,
 real-coupling and imaginary-coupling keys, as the JAX engine does),
 assembles the perturbed, biased Hamiltonian in the lanes layout
-(ops/noise.assemble_lanes) and scores its transfer fidelity
+(ops/mc_draws.draw_lanes: one CUDA kernel launch a chunk for CUDA
+tensors, ops/prng and ops/noise.assemble_lanes for CPU ones) and scores
+its transfer fidelity
 (ops/cuda_jacobi.fidelity_herm: the CUDA kernel for CUDA tensors, the
 plain version for CPU ones; ``use_jacobi=False`` takes instead the JAX
 package's LAPACK parity path, a complex ``torch.linalg.eigh`` of the same
@@ -36,7 +38,8 @@ from code_robchar_tpu_torch import config
 from code_robchar_tpu_torch.metrics.rim import (compute_dkw_error,
                                                 wd_from_ideal_zero)
 from code_robchar_tpu_torch.metrics.stats import metric_registry
-from code_robchar_tpu_torch.ops import cuda_jacobi, noise, prng, propagate
+from code_robchar_tpu_torch.ops import (cuda_jacobi, mc_draws, noise, prng,
+                                       propagate)
 from code_robchar_tpu_torch.utils import trace
 
 #: elements per chunk on the CPU (keeps an x64 chunk's working set small)
@@ -52,39 +55,40 @@ def _setup(h0, controllers, noises, key, device, chunk):
     device = config.resolve_device(device)
     h0 = torch.as_tensor(h0, device=device)
     h0r = (h0.real if h0.is_complex() else h0).contiguous()
-    ctrl = torch.as_tensor(controllers, device=device).to(h0r.dtype)
-    noises = torch.as_tensor(noises, device=device).to(h0r.dtype)
+    ctrl = torch.as_tensor(controllers, device=device).to(h0r.dtype) \
+        .contiguous()
+    noises = torch.as_tensor(noises, device=device).to(h0r.dtype) \
+        .contiguous()
     if chunk is None:
         chunk = KERNEL_CHUNK if device.type == "cuda" else DEFAULT_CHUNK
-    return h0r, ctrl, noises, key.to(device), chunk
+    return h0r, ctrl, noises, key.to(device).contiguous(), chunk
 
 
-def _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin, out_spin,
-          complex_offdiag, use_jacobi, c_offset=0, c_global=None):
-    """Fidelities of the lattice elements with local flat ids ``ids``
-    (layout (L, C_local, B) over the controller block ``ctrl``).  Each
-    element's key folds its global id in the (L, ``c_global``, B) lattice,
-    the block starting at controller ``c_offset``, so a block of a sharded
-    sweep draws what the unsharded sweep draws for those elements."""
-    num_c = ctrl.shape[0]
-    c_global = num_c if c_global is None else c_global
+def _fids(h0r, ctrl, noises, key, start, count, bootreps, in_spin,
+          out_spin, complex_offdiag, use_jacobi, c_offset=0, c_global=None):
+    """Fidelities of the lattice elements with local flat ids start ..
+    start + count - 1 (layout (L, C_local, B) over the controller block
+    ``ctrl``).  Each element's key folds its global id in the (L,
+    ``c_global``, B) lattice, the block starting at controller
+    ``c_offset``, so a block of a sharded sweep draws what the unsharded
+    sweep draws for those elements (ops/mc_draws.py)."""
+    c_global = ctrl.shape[0] if c_global is None else c_global
     with trace.span("mc.draws"):
-        cell = ids // bootreps
-        l_idx, c_idx = cell // num_c, cell % num_c
-        gids = (l_idx * c_global + c_idx + c_offset) * bootreps \
-            + ids % bootreps
-        keys = prng.fold_in(key, gids)
-        xs, scales = ctrl[c_idx], noises[l_idx]
-        if not use_jacobi:
+        if use_jacobi:
+            # one kernel launch on the card, its plain version on the CPU
+            ar, ai, t = mc_draws.draw_lanes(h0r, ctrl, noises, key, start,
+                                            count, bootreps, complex_offdiag,
+                                            c_offset, c_global)
+        else:
             # the element kernel of the JAX package's LAPACK path: the
             # complex perturbation of the same keys, then a complex eigh
+            keys, xs, scales = mc_draws.lattice_keys(
+                ctrl, noises, key, start, count, bootreps, c_offset,
+                c_global)
             h0c = h0r.to(config.complex_dtype(h0r.dtype))
             z = noise.structured_perturbation(keys, h0r.shape[-1], scales,
                                               complex_offdiag,
                                               dtype=h0c.dtype)
-        else:
-            ar, ai, t = noise.assemble_lanes(h0r, xs, scales, keys,
-                                             complex_offdiag)
     with trace.span("mc.kernel"):
         if not use_jacobi:
             return propagate.fidelity_from_controller(h0c + z, xs, in_spin,
@@ -119,11 +123,10 @@ def mc_fidelity_sweep(h0, controllers, noises, key: torch.Tensor,
     out = torch.empty(total, dtype=h0r.dtype, device=h0r.device)
     for start in range(0, total, chunk):
         with trace.span("mc.chunk"):
-            ids = torch.arange(start, min(start + chunk, total),
-                               device=h0r.device)
-            out[start:start + len(ids)] = _fids(
-                h0r, ctrl, noises, key, ids, bootreps, in_spin, out_spin,
-                complex_offdiag, use_jacobi, c_offset, c_global)
+            count = min(chunk, total - start)
+            out[start:start + count] = _fids(
+                h0r, ctrl, noises, key, start, count, bootreps, in_spin,
+                out_spin, complex_offdiag, use_jacobi, c_offset, c_global)
     return out.reshape(num_l, num_c, bootreps)
 
 
@@ -153,9 +156,8 @@ def mc_metric_sweep(h0, controllers, noises, key: torch.Tensor,
     parts = []
     for start in range(0, total, step):
         with trace.span("mc.chunk"):
-            ids = torch.arange(start, min(start + step, total),
-                               device=h0r.device)
-            fids = _fids(h0r, ctrl, noises, key, ids, bootreps, in_spin,
+            fids = _fids(h0r, ctrl, noises, key, start,
+                         min(step, total - start), bootreps, in_spin,
                          out_spin, complex_offdiag, use_jacobi, c_offset,
                          c_global)
             with trace.span("mc.reduce"):

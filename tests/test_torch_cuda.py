@@ -11,7 +11,8 @@ import torch
 
 from code_robchar_tpu_torch.mc import engine
 from code_robchar_tpu_torch.models import LBFGS, NMPlus
-from code_robchar_tpu_torch.ops import chain, cuda_jacobi, prng, realform
+from code_robchar_tpu_torch.ops import (chain, cuda_jacobi, mc_draws, noise,
+                                       prng, realform)
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +76,102 @@ def test_engine_on_card_matches_cpu(dev):
                                     device="cpu")
     assert got.device.type == "cuda"
     assert float((got.cpu() - want).abs().max()) <= 3e-5
+
+
+def _draw_inputs(n, dev, num_c=40, num_l=11, seed=0):
+    rng = np.random.default_rng(seed)
+    h0 = chain.xx_hamiltonian_real(n, dtype=torch.float32, device=dev)
+    ctrl = torch.as_tensor(np.column_stack([rng.uniform(-10, 10, (num_c, n)),
+                                            rng.uniform(0, 30, num_c)]),
+                           dtype=torch.float32, device=dev)
+    noises = torch.as_tensor(np.linspace(0, 0.1, num_l), dtype=torch.float32,
+                             device=dev)
+    return h0, ctrl, noises
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+#: (start, count, c_offset, c_global) on the (11, 40, 100) lattice of
+#: _draw_inputs, or, for a block (c_offset > 0), of its 16 controllers from
+#: c_offset: a whole chunk from 0, one that starts mid-lattice, the partial
+#: last one, a mesh block's chunk (the block starting at controller 24 of 64)
+DRAW_CASES = {"first": (0, 13_000, 0, None),
+              "mid": (7_777, 13_000, 0, None),
+              "partial_last": (44_000 - 1_234, 1_234, 0, None),
+              "mesh_block": (3_001, 9_000, 24, 64)}
+
+
+@pytest.mark.parametrize("case", sorted(DRAW_CASES))
+@pytest.mark.parametrize("cx", [True, False])
+@pytest.mark.parametrize("n", [5, 7])
+def test_draw_kernel_equals_torch_route_bitwise(dev, n, cx, case):
+    """csrc/mc_draw_lanes.cu writes the (ar, ai, t) of the torch route on
+    the card (prng.fold_in of the same global ids, noise.assemble_lanes)
+    in every bit."""
+    start, count, c_offset, c_global = DRAW_CASES[case]
+    h0, ctrl, noises = _draw_inputs(n, dev, seed=n)
+    if c_offset:
+        ctrl = ctrl[:16].contiguous()
+    key = prng.fold_in(prng.key(2**35 + 3, device=dev), n)
+    c_glob = ctrl.shape[0] if c_global is None else c_global
+    gids, l_idx, c_idx = mc_draws.lattice_ids(start, count, 100,
+                                              ctrl.shape[0], c_offset,
+                                              c_glob, dev)
+    route = noise.assemble_lanes(h0, ctrl[c_idx], noises[l_idx],
+                                 prng.fold_in(key, gids), cx)
+    before = mc_draws.LAUNCHES
+    got = mc_draws.draw_lanes(h0, ctrl, noises, key, start, count, 100, cx,
+                              c_offset, c_global)
+    torch.cuda.synchronize()
+    assert mc_draws.LAUNCHES == before + 1
+    for g, want in zip(got, route):
+        assert g.device == want.device and g.shape == want.shape
+        assert torch.equal(_bits(g), _bits(want))
+
+
+def test_characterise_on_card_equals_the_torch_route(dev, monkeypatch):
+    """characterise(..., return_fids=False) on the card reads the metric
+    tensors of the parent route (the draws in torch ops, then kernel 1),
+    and the kernel route launches the draw kernel once a chunk."""
+    n = 7
+    h0, ctrl, noises = _draw_inputs(n, dev, num_c=300, seed=4)
+    key = prng.key(2**33 + 21, device=dev)
+    kw = dict(alpha=0.05, complex_offdiag=True, chunk=4_000,
+              return_fids=False, device=dev)
+    before = mc_draws.LAUNCHES
+    got = engine.characterise(h0, ctrl, noises, key, 100, 0, 6, **kw)
+    torch.cuda.synchronize()
+    chunks = -(-11 * 300 // 40)           # 40 cells (4,000 elements) a chunk
+    assert mc_draws.LAUNCHES == before + chunks
+    monkeypatch.setattr(mc_draws, "draw_lanes", mc_draws.draw_lanes_plain)
+    want = engine.characterise(h0, ctrl, noises, key, 100, 0, 6, **kw)
+    assert mc_draws.LAUNCHES == before + chunks
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+def test_draw_kernel_refuses_what_it_does_not_take(dev):
+    h0, ctrl, noises = _draw_inputs(5, dev)
+    key = prng.key(1, device=dev)
+    before = mc_draws.LAUNCHES
+    args = (0, 100, 100)
+    with pytest.raises(ValueError, match="float32"):
+        mc_draws.draw_lanes(h0.double(), ctrl.double(), noises.double(), key,
+                            *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        mc_draws.draw_lanes(h0, ctrl.T.contiguous().T, noises, key, *args)
+    with pytest.raises(ValueError, match="device"):
+        mc_draws.draw_lanes(h0, ctrl, noises, key.cpu(), *args)
+    with pytest.raises(ValueError, match="device"):
+        mc_draws.draw_lanes_cuda(h0.cpu(), ctrl.cpu(), noises.cpu(),
+                                 key.cpu(), *args)
+    assert mc_draws.LAUNCHES == before
+    ar, ai, t = mc_draws.draw_lanes(h0, ctrl, noises, key, 0, 0, 100)
+    assert ar.shape == (5, 5, 0) and t.shape == (0,)
+    assert mc_draws.LAUNCHES == before
 
 
 def _sym_batch(n, b, dev, seed=0):
