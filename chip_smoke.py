@@ -161,7 +161,7 @@ Phases:
    matrices, 4 sweeps, assembled anew from the visited controllers):
    against the plain version (amplitude <= 3e-5) and against the epoch's
    own fidelities, and timed there card-paced beside the plain version,
-   eigh and the bound.  Then the float32 critic kernel's own path, with its count set to 0 just before:
+   eigh and the bound.  Then the float32 critic kernel's own path, its launches counted from just before:
    ops.critic.critic_train(fast_dot=False), the entry point of a
    full-precision regression on the card, takes 200 Adam steps from the
    epochs' final state (1024 agents, full width) on the last epoch's
@@ -186,7 +186,7 @@ Phases:
     and csrc/tanh_probe.cu on a (512, 128) normal array, ops mul, tanh and
     rational, K 1024 and 8192, each launch held against its plain version
     (bit-equal; tanhf against torch.tanh within K * 2^-24); then the
-    path's sweeps with the counts set to 0 just before: card-paced times by
+    path's sweeps, their launches counted from just before: card-paced times by
     K, the marginal cost of a step (ns and SM cycles per step per 1024
     lanes; ps per element per step) as JSON lines, and both kernels timed
     for the kernels line beside their plain versions and their
@@ -208,8 +208,8 @@ Phases:
     float32 on the card).  First the zoo kernels held against their plain
     versions at this path's shapes: Adam's 64 streams, SNOB's round of
     ZOO_POOL x 10 = 81,920 candidates (Sobol points across the box) and
-    run()'s 128 x 10 = 1,280.  Then, each with the four zoo kernels' counts
-    set to 0 just before and read just after: Adam.run() with its 64
+    run()'s 128 x 10 = 1,280.  Then, each with the four zoo kernels'
+    launches counted from just before to just after: Adam.run() with its 64
     streams and 1000-step segments on a budget of 64 x 5000 fcalls (five
     segments, the fifth a restart segment), noiseless, then one segment
     under ham noise (sigma 0.05): segments/s, steps/s, probes per stream,
@@ -281,7 +281,7 @@ Phases:
     PIPE_FID_THRESHOLD) and the rest at the CLI's defaults, and a budget of
     PIPE_BUDGET fcalls a run, cut from the paper's 1,000,000 (the paper
     also sets fid_threshold 0.1): each family's run() wrapped so that every
-    kernel's count is set to 0 just before and read just after; the wall, the
+    kernel's launches are counted from just before to just after; the wall, the
     objective calls per second and the launches of each run; L-BFGS (its
     forward differences of the ham-noisy objective), NM and SNOB must
     launch an amplitude kernel, PPO the rollout kernel, the bf16 critic
@@ -323,7 +323,7 @@ Phases:
 16. the figures, run after 15 and before 17 and the kernels line of 14 (N=5,
     0 -> 2, float32 on the card, noises linspace(0, 0.1, 11), seed 0), on
     copies of the in-repo selfgen stores in a temporary directory; each
-    stage with every count set to 0 just before, timed by the port's
+    stage's launches counted from just before, timed by the port's
     utils.trace.Stopwatch and ``timed`` (synchronising a CUDA tensor).
     (a) The characterised figures at the paper's size (1000 controllers,
     100 bootreps, the ten sets: 11M Hamiltonians):
@@ -350,8 +350,8 @@ Phases:
     SNOBSkquant.run() on the vendored engine (models/snobfit_core.py) in
     budget mode: SNOBFIT_RESTARTS restarts of budget SNOBFIT_BUDGET,
     landscape exploration, fid_threshold 0, noiseless and then ham-noisy
-    (sigma 0.05), each with the four zoo kernels' counts set to 0 just
-    before and read just after.  Each run must reach its budget
+    (sigma 0.05), each with the four zoo kernels' launches counted
+    from just before to just after.  Each run must reach its budget
     (func_calls = restarts x budget); the lane-group amplitude kernel must
     be launched once a scored batch (n + 6 = 14 points in SNOBFIT's 8
     dimensions, fewer at a restart's end, and the start alone) plus once a
@@ -368,8 +368,8 @@ Phases:
     diagonal; state_vector, input_state, output_state.
 18. the mesh on the card, after 17 (parallel/mesh.py; a MESH_ENTRIES-entry
     mesh that repeats cuda:0, the number of CUDA devices printed; the
-    blocks run one after another from the host), each stage with every
-    count set to 0 just before and read just after; every wall host-paced,
+    blocks run one after another from the host), each stage's launches
+    counted from just before to just after; every wall host-paced,
     beside the unsharded one.  (a) sharded_mc_metrics at the MC headline's
     full width (10,000 controllers, 2,500 a block, x 11 x 100, key(1)): all
     15 tensors bit-equal to phase 3's key(1) run and the same
@@ -386,9 +386,10 @@ Phases:
     and block, the lane-group amplitude kernel once a step and block plus
     the true fidelities; its kernels held at a block's 16 streams first.
     (e) parallel/dryrun.dryrun_multichip on a MESH_ENTRIES-entry mesh.
-14. the kernels JSON line (all ten kernels: launches on their paths, the
-    max abs error against the plain version, ms and plain_ms from CUDA
-    events (kernel 1's launches on phases 3, 15, 16 and 18, the four zoo
+14. the kernels JSON line (eleven kernels, named by C entry: launches on
+    their paths, the max abs error against the plain version, ms and
+    plain_ms from CUDA events (kernel 1's and the draw kernel's launches on
+    phases 3, 15, 16 and 18, the four zoo
     kernels' on the paths of phases 5, 8, 12, 13, 15, 17 and 18, the
     rollout and bf16 critic kernels' on phases 8, 13, 15 and 18, timed
     at the batch of their path: 9216 and
@@ -401,7 +402,9 @@ Phases:
     1-3, which computes the eigendecomposition only, none for the rollout
     and critic kernels; the probes' bounds are their issue-slot bounds,
     "bound_by": "issue slots", phase 10 printing the 67 TFLOP/s bound
-    beside them), then {"ok": true, "device": {...}} as the last line.
+    beside them), the launches JSON line (every C entry's launches in the
+    process, the holds' and the timing loops' included), then {"ok": true,
+    "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -413,9 +416,12 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
+
+from code_robchar_tpu_torch.utils import build
 
 JAX_RIM_CHECKSUM = 109979.109   # JAX package, same key and inputs
 #: the repository root (this file's directory) and the RIM's key in the
@@ -443,6 +449,7 @@ SPIN_CYCLES = 50_000_000
 #: per matrix, a group of lanes per matrix
 AMP_KERNELS = ("sym_jacobi_amp", "sym_jacobi_amp_group")
 GRAD_KERNELS = ("sym_jacobi_grad", "sym_jacobi_grad_group")
+ZOO_KERNELS = AMP_KERNELS + GRAD_KERNELS
 #: a lane width above the gradient's route threshold, for the one-thread
 #: gradient kernel's own path
 WIDE_LANES = 131072
@@ -542,8 +549,6 @@ def phase_device():
 
 
 def phase_build():
-    from code_robchar_tpu_torch.utils import build
-
     res = build.build()
     print(f"build: {res.seconds:.2f} s (cached={res.cached}) -> {res.path}")
     for line in res.log.splitlines():
@@ -768,7 +773,7 @@ def _hold_draw_kernel():
                 raise RuntimeError(f"the draw kernel differs from the torch "
                                    f"route ({label}, complex {cx})")
     args = (h0, ctrl, noises, key, 0, b, reps, True, 0, MC_CONTROLLERS)
-    before = mc_draws.LAUNCHES
+    before = build.LAUNCHES["mc_draw_lanes"]
     timings = {}
     for label, fn, reps_t in (
             ("plain", lambda: mc_draws.draw_lanes_plain(*args), 3),
@@ -777,7 +782,7 @@ def _hold_draw_kernel():
             ("plain", lambda: mc_draws.draw_lanes_plain(*args), 3)):
         timings.setdefault(label, []).append(
             _time_ms(fn, reps_t, behind_spin=label == "kernel"))
-    launched = mc_draws.LAUNCHES - before
+    launched = build.LAUNCHES["mc_draw_lanes"] - before
     ms, plain_ms = min(timings["kernel"]), min(timings["plain"])
     bound = _bound(0.0, 4 * b * (2 * n * n + 1))
     print(f"timing draw kernel n={n} B={b}: kernel {timings['kernel']} ms "
@@ -792,7 +797,7 @@ def _hold_draw_kernel():
 
 def phase_main_path():
     from code_robchar_tpu_torch.mc import engine
-    from code_robchar_tpu_torch.ops import cuda_jacobi, mc_draws, prng
+    from code_robchar_tpu_torch.ops import prng
 
     draw = _hold_draw_kernel()
     n, n_ctrl, n_noise, bootreps = MC_N, MC_CONTROLLERS, MC_NOISES, \
@@ -805,7 +810,7 @@ def phase_main_path():
         return engine.mc_metric_sweep(h0, ctrl, noises, prng.key(k),
                                       bootreps, 0, 6, **kwargs)
 
-    cuda_jacobi.LAUNCHES = mc_draws.LAUNCHES = 0
+    before = build.LAUNCHES.copy()
     warm = run(0)
     float(warm[engine.RIM_NAME].sum())
     times, checksum, first = [], None, None
@@ -816,7 +821,8 @@ def phase_main_path():
         times.append(time.perf_counter() - start)
         if checksum is None:
             checksum, first = cs, metrics
-    launches, draws = cuda_jacobi.LAUNCHES, mc_draws.LAUNCHES
+    used = build.LAUNCHES - before
+    launches, draws = used["herm_jacobi_fidelity"], used["mc_draw_lanes"]
     wall = statistics.median(times)
     print(f"main path: N={n} {n_ctrl} controllers x {n_noise} noise levels x "
           f"{bootreps} bootreps = {total} Hamiltonians; wall {times} s, "
@@ -853,7 +859,7 @@ def phase_main_path():
         if err > TOL_SLICE:
             raise RuntimeError(f"main path disagrees with the f64 plain "
                                f"path on {name!r}: {err}")
-    return launches, wall, total / wall, checksum, first, draws, draw
+    return used, wall, total / wall, checksum, first, draw
 
 
 def _sym_cases(rng, n, b):
@@ -1125,32 +1131,15 @@ def _zoo_optimizer(cls, n=7, out=6, **kw):
                dtype=torch.float32, **kw)
 
 
-def _zoo_counts():
-    from code_robchar_tpu_torch.ops import cuda_jacobi
-
-    return {"sym_jacobi_amp": cuda_jacobi.SYM_AMP_LAUNCHES,
-            "sym_jacobi_amp_group": cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
-            "sym_jacobi_grad": cuda_jacobi.SYM_GRAD_LAUNCHES,
-            "sym_jacobi_grad_group": cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES}
-
-
-def _reset_zoo_counts():
-    from code_robchar_tpu_torch.ops import cuda_jacobi
-
-    cuda_jacobi.SYM_AMP_LAUNCHES = cuda_jacobi.SYM_GRAD_LAUNCHES = 0
-    cuda_jacobi.SYM_AMP_GROUP_LAUNCHES = 0
-    cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES = 0
-
-
 def phase_zoo_path(worst):
     from code_robchar_tpu_torch.models import LBFGS, NMPlus
     from code_robchar_tpu_torch.ops import cuda_jacobi, prng, realform
 
     out, ends = {}, {}
-    _reset_zoo_counts()
+    start_counts = build.LAUNCHES.copy()
     for cls, warm, timed in ((LBFGS, 5, (7, 8, 9)), (NMPlus, 15, (16, 17, 18))):
         opt = _zoo_optimizer(cls)
-        before = _zoo_counts()
+        before = build.LAUNCHES.copy()
 
         def run(seed):
             x0s = torch.as_tensor(opt.init_points(ZOO_POOL),
@@ -1171,7 +1160,7 @@ def phase_zoo_path(worst):
                     fid.min() < -1e-5 or fid.max() > 1 + 1e-5 or \
                     int(res.nfev.min()) <= 0:
                 raise RuntimeError(f"{cls.name}: bad batch result")
-        used = {k: v - before[k] for k, v in _zoo_counts().items()}
+        used = build.LAUNCHES - before
         wall = statistics.median(times)
         print(f"zoo path {cls.name}: N=7 pool {ZOO_POOL}, lanes "
               f"{opt.lane_width}; wall {times} s, median {wall:.4f} s, "
@@ -1193,11 +1182,11 @@ def phase_zoo_path(worst):
                                f"to: {used}")
         out[cls.name] = (wall, ZOO_POOL / wall, stats[0])
         ends[cls.name] = res.x
-    launches = _zoo_counts()
+    launches = build.LAUNCHES - start_counts
 
     # the one-thread gradient kernel's own path: L-BFGS lanes wide enough
     # to fill the card (a pool of WIDE_LANES restarts in WIDE_LANES lanes,
-    # three iterations), with its count set to 0 just before
+    # three iterations), its launches counted from just before
     opt = _zoo_optimizer(LBFGS, lane_width=WIDE_LANES, maxiter=3)
     if cuda_jacobi.grad_route(7, WIDE_LANES) != "sym_jacobi_grad":
         raise RuntimeError(f"{WIDE_LANES} lanes are not routed to the "
@@ -1218,18 +1207,17 @@ def phase_zoo_path(worst):
         raise RuntimeError("sym_jacobi_grad disagrees with its plain version "
                            "at the wide path's starts")
     worst["sym_jacobi_grad"] = max(worst["sym_jacobi_grad"], e_err, e_grad)
-    cuda_jacobi.SYM_GRAD_LAUNCHES = 0
-    group_before = cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     res = opt._run_batch(x0s, prng.split(prng.key(21), WIDE_LANES))
     fid = res.fid.cpu().numpy()
-    launches["sym_jacobi_grad"] = cuda_jacobi.SYM_GRAD_LAUNCHES
+    wide = build.LAUNCHES - before
+    launches["sym_jacobi_grad"] = wide["sym_jacobi_grad"]
     print(f"wide L-BFGS path: N=7 pool {WIDE_LANES} in {WIDE_LANES} lanes, "
           f"maxiter 3: {time.perf_counter() - start:.2f} s, {opt.stats}; "
           f"sym_jacobi_grad launches {launches['sym_jacobi_grad']} "
-          f"(sym_jacobi_grad_group "
-          f"{cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES - group_before}); best fid "
-          f"{fid.max():.6f}")
+          f"(sym_jacobi_grad_group {wide['sym_jacobi_grad_group']}); best "
+          f"fid {fid.max():.6f}")
     if launches["sym_jacobi_grad"] <= 0 or not np.isfinite(fid).all() or \
             fid.min() < -1e-5 or fid.max() > 1 + 1e-5:
         raise RuntimeError("the wide L-BFGS path failed or launched no "
@@ -1478,15 +1466,14 @@ def _hold_rollout(label, args, kw, free=True):
 
     w1, w2, w3, ls, h0, action, tstep, ep_len, eps, zd, zn = args
     reg = w2.shape[-1] == rollout.REG_HIDDEN
-    before = (rollout.LAUNCHES_REG, rollout.LAUNCHES)
+    before = build.LAUNCHES.copy()
     got = rollout.actor_env_rollout(*args, **kw)
     torch.cuda.synchronize()
-    took = (rollout.LAUNCHES_REG - before[0], rollout.LAUNCHES - before[1])
-    kernel = ("actor_env_rollout_reg_kernel" if reg
-              else "actor_env_rollout_kernel")
-    if took != ((1, 0) if reg else (0, 1)):
-        raise RuntimeError(f"rollout {label}: launches (reg, generic) {took}, "
-                           f"expected one of {kernel} alone")
+    took = build.LAUNCHES - before
+    entry = "actor_env_rollout_reg" if reg else "actor_env_rollout"
+    if took != Counter({entry: 1}):
+        raise RuntimeError(f"rollout {label}: launches {took}, expected one "
+                           f"of {entry} alone")
     n = action.shape[0]
     t_len, a_cnt = got.fid.shape
     err = torch.zeros(a_cnt, device=h0.device)
@@ -1525,7 +1512,7 @@ def _hold_rollout(label, args, kw, free=True):
                   f"plain {int(_rollouts_parted(got, plain).sum())}, plain "
                   f"vs plain with the carry one ulp up "
                   f"{int(_rollouts_parted(plain, witness).sum())}")
-    print(f"rollout kernel {label} ({kernel}): A={a_cnt} T={t_len}, step "
+    print(f"rollout kernel {label} ({entry}): A={a_cnt} T={t_len}, step "
           f"by step from "
           f"the kernel's carry: max |kernel-plain| {worst:.3e} (tol "
           f"{TOL_PPO:g}); parted {n_parted}/{a_cnt}, of them away from a "
@@ -1756,7 +1743,7 @@ def phase_ppo_kernels():
 
 def phase_ppo_path():
     from code_robchar_tpu_torch.models import PPO_en
-    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, prng, rollout
+    from code_robchar_tpu_torch.ops import critic, prng
 
     a_cnt, t_len = PPO_AGENTS, PPO_STEPS
     ppo = PPO_en(7, 0, 6, testing=True, fid_threshold=0.0, ham_noisy=True,
@@ -1774,9 +1761,7 @@ def phase_ppo_path():
         marks.append((name, ev))
 
     ppo.stage_hook = mark
-    rollout.LAUNCHES_REG = rollout.LAUNCHES = 0
-    critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     for _ in range(2):
         st, out = epoch_fn(st)
         float(out.rewards.sum())
@@ -1789,10 +1774,11 @@ def phase_ppo_path():
         pi_iters.append(float(out.pi_iters.double().mean()))
         float(out.rewards.sum())
     wall = time.perf_counter() - start
-    launches = {"rollout": rollout.LAUNCHES_REG,
-                "critic_bf16": critic.LAUNCHES_BF16,
-                "amp": cuda_jacobi.SYM_AMP_LAUNCHES}
-    f32_launches, generic_launches = critic.LAUNCHES, rollout.LAUNCHES
+    used = build.LAUNCHES - before
+    launches = Counter({k: used[k] for k in (
+        "actor_env_rollout_reg", "critic_train_bf16", "sym_jacobi_amp")})
+    f32_launches = used["critic_train"]
+    generic_launches = used["actor_env_rollout"]
     torch.cuda.synchronize()
     split = {}
     for (_, a), (name, b) in zip(marks, marks[1:]):
@@ -1804,16 +1790,17 @@ def phase_ppo_path():
           f"3 epochs {wall:.4f} s, {rate:.1f} env-steps/s; per epoch (ms, "
           f"CUDA events): " + ", ".join(f"{k} {v:.2f}" for k, v in
                                         split.items())
-          + f"; mean pi_iters {pi_iters}; launches over 5 epochs {launches}"
-          f" (rollout: actor_env_rollout_reg_kernel; the generic rollout "
-          f"kernel {generic_launches}); best reward {float(rew.max()):.6f}")
-    if min(launches.values()) <= 0 or launches["critic_bf16"] != 5 or \
-            launches["rollout"] != 5 or f32_launches != 0 or \
+          + f"; mean pi_iters {pi_iters}; launches over 5 epochs "
+          f"{dict(launches)} (the generic rollout kernel "
+          f"{generic_launches}); best reward {float(rew.max()):.6f}")
+    if launches["sym_jacobi_amp"] <= 0 or \
+            launches["critic_train_bf16"] != 5 or \
+            launches["actor_env_rollout_reg"] != 5 or f32_launches != 0 or \
             generic_launches != 0:
         raise RuntimeError(f"the PPO path missed a kernel, or did not take "
                            f"the rollout kernel of its width and the bf16 "
                            f"critic kernel once per epoch and those alone: "
-                           f"{launches}, generic rollout kernel "
+                           f"{dict(launches)}, generic rollout kernel "
                            f"{generic_launches}, float32 critic kernel "
                            f"{f32_launches}")
     if not bool(torch.isfinite(rew).all()) or float(rew.min()) < -1e-5 or \
@@ -1825,23 +1812,24 @@ def phase_ppo_path():
     # the float32 critic kernel's path: a full-precision regression from
     # the final state on the last epoch's visited controllers and rewards
     obs, rets = out.stores.contiguous(), out.rewards.contiguous()
-    before = critic.value_loss(critic.pack_critic(st.params, a_cnt), obs,
-                               rets, 100)
-    critic.LAUNCHES = 0
+    loss0 = critic.value_loss(critic.pack_critic(st.params, a_cnt), obs,
+                              rets, 100)
+    before = build.LAUNCHES.copy()
     params, vf_opt = critic.critic_train(st.params, st.vf_opt, obs, rets,
                                          iters=200, lr=1e-3, fast_dot=False)
     torch.cuda.synchronize()
-    launches["critic"] = critic.LAUNCHES
+    used = build.LAUNCHES - before
+    launches["critic_train"] = used["critic_train"]
     theta = critic.pack_critic(params, a_cnt)
     after = critic.value_loss(theta, obs, rets, 100)
     print(f"float32 critic path: critic_train(fast_dot=False) on the final "
           f"state, {a_cnt} agents x {t_len} rows, 200 iterations: launches "
-          f"{launches['critic']} (bf16 kernel still "
-          f"{critic.LAUNCHES_BF16}), value loss {before:.6f} -> "
+          f"{launches['critic_train']} (bf16 kernel "
+          f"{used['critic_train_bf16']}), value loss {loss0:.6f} -> "
           f"{after:.6f}")
-    if launches["critic"] != 1 or critic.LAUNCHES_BF16 != 5 or \
+    if launches["critic_train"] != 1 or used["critic_train_bf16"] or \
             not torch.equal(vf_opt.count, st.vf_opt.count + 200) or \
-            not bool(torch.isfinite(theta).all()) or not after < before:
+            not bool(torch.isfinite(theta).all()) or not after < loss0:
         raise RuntimeError("the float32 critic path failed")
     return launches, rate, amp_err, amp_ms
 
@@ -1961,8 +1949,8 @@ def phase_probes():
     """The probe path: both probe kernels held against their plain versions
     at every shape of the path, then the path itself
     (code_robchar_tpu_torch/perf/probes.py's sweeps) with the counts set to
-    0 just before.  Returns (launches, worst error, (ms, plain_ms, bound))
-    per kernel."""
+    0 just before.  Returns the path's launches and (worst error, (ms,
+    plain_ms, bound)) per kernel."""
     from code_robchar_tpu_torch.ops import probes
     from code_robchar_tpu_torch.perf import probes as path
 
@@ -1995,16 +1983,15 @@ def phase_probes():
                 raise RuntimeError(f"tanh_probe op {op} disagrees with its "
                                    f"plain version")
 
-    probes.ALU_LAUNCHES = probes.TANH_LAUNCHES = 0
+    before = build.LAUNCHES.copy()
     alu, tanh = path.alu_sweep(x), path.tanh_sweep(xt)
-    launches = {"alu_probe": probes.ALU_LAUNCHES,
-                "tanh_probe": probes.TANH_LAUNCHES}
+    launches = build.LAUNCHES - before
     for s, res in alu.items():
         print(json.dumps({f"alu_probe_{s}_streams": res}))
     for op, res in tanh.items():
         print(json.dumps({f"tanh_probe_{op}": res}))
-    print(f"probe path launches: {launches}")
-    if min(launches.values()) <= 0:
+    print(f"probe path launches: {dict(launches)}")
+    if not launches["alu_probe"] or not launches["tanh_probe"]:
         raise RuntimeError(f"the probe path missed a kernel: {launches}")
 
     # the kernels line: the largest shape of each sweep (alu: 8 streams,
@@ -2036,10 +2023,10 @@ def phase_probes():
           f"{tanh_ms:.5f} ms (plain {tanh_plain:.3f} ms; bound "
           f"{tanh_bound[0]:.5f} ms at one operation an issue slot, "
           f"{tanh_flops[0]:.5f} ms ({tanh_flops[1]}, 67 TFLOP/s))")
-    return {"alu_probe": (launches["alu_probe"], worst["alu_probe"],
-                          (alu_ms, alu_plain, alu_bound)),
-            "tanh_probe": (launches["tanh_probe"], worst["tanh_probe"],
-                           (tanh_ms, tanh_plain, tanh_bound))}
+    return launches, {
+        "alu_probe": (worst["alu_probe"], (alu_ms, alu_plain, alu_bound)),
+        "tanh_probe": (worst["tanh_probe"], (tanh_ms, tanh_plain,
+                                             tanh_bound))}
 
 
 #: restarts of the shot-noise phase's zoo pools (the width stays N = 7):
@@ -2051,12 +2038,6 @@ NOISY_PPO_EPOCHS = 1
 #: the largest share of binomial draws on the card that may differ from the
 #: same call on the CPU
 CARD_CPU_SHARE = 1e-3
-
-
-def _amp_counts():
-    from code_robchar_tpu_torch.ops import cuda_jacobi
-
-    return cuda_jacobi.SYM_AMP_LAUNCHES + cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
 
 
 class _DrawClock:
@@ -2143,13 +2124,13 @@ def phase_shot_noise():
             x0s = torch.as_tensor(opt.init_points(NOISY_POOL),
                                   dtype=torch.float32, device="cuda")
             keys = prng.split(prng.key(31), NOISY_POOL)
-            before = _amp_counts()
+            before = build.LAUNCHES.copy()
             with _DrawClock() as clock:
                 start = time.perf_counter()
                 res = opt._run_batch(x0s, keys)
                 fid = res.fid.cpu().numpy()
                 wall = time.perf_counter() - start
-            used = _amp_counts() - before
+            used = sum((build.LAUNCHES - before)[k] for k in AMP_KERNELS)
             rounds = opt.stats.get("trials", opt.stats.get("rounds"))
             name = f"{cls.name}{' adaptive' if adaptive else ''}"
             print(f"noisy zoo {name}: N=7 pool {NOISY_POOL}, draws 10: "
@@ -2176,7 +2157,7 @@ def phase_shot_noise():
     epoch_fn = ppo._build_epoch(PPO_STEPS, 0.2, 3e-3, 1e-3, 1000, 200, 200,
                                 0.01)
     st = ppo._init_agent(prng.split(prng.key(0), PPO_AGENTS))
-    before = _amp_counts()
+    before = build.LAUNCHES.copy()
     walls = []
     with _DrawClock() as clock:
         for _ in range(NOISY_PPO_EPOCHS):
@@ -2184,7 +2165,7 @@ def phase_shot_noise():
             st, out = epoch_fn(st)
             rew = out.rewards.cpu().numpy()
             walls.append(time.perf_counter() - start)
-    used = _amp_counts() - before
+    used = sum((build.LAUNCHES - before)[k] for k in AMP_KERNELS)
     rate = PPO_AGENTS * PPO_STEPS / statistics.mean(walls)
     print(f"noisy ppo: N=7 {PPO_AGENTS} agents x {PPO_STEPS} steps, draws "
           f"10, per-step loop, {NOISY_PPO_EPOCHS} epoch(s) (cut from 2 to "
@@ -2212,10 +2193,11 @@ SNOB_RUN_BUDGET = 128 * 300 * 3
 
 
 def _expect_counts(label, used, want):
-    """Fail unless the four zoo kernels' counts ``used`` are those of
-    ``want``, a list of (kernel, launches) (the kernels not named there:
-    0)."""
-    full = dict.fromkeys(used, 0)
+    """Fail unless the four zoo kernels' counts in ``used`` (launches by C
+    entry) are those of ``want``, a list of (kernel, launches) (the
+    kernels not named there: 0)."""
+    used = {k: used[k] for k in ZOO_KERNELS}
+    full = dict.fromkeys(ZOO_KERNELS, 0)
     for k, n_launch in want:
         full[k] += n_launch
     print(f"{label}: zoo kernel launches {used} (expected {full})")
@@ -2234,12 +2216,12 @@ def _adam_run(label, segments, **kw):
     budget = ADAM_STREAMS * segments * opt.segment_its
     opt.run_until_completion_its = budget
     opt.fid_threshold = 0.0
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     opt.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    used = _zoo_counts()
+    used = build.LAUNCHES - before
     rec = opt.record
     steps = segments * opt.segment_its
     probes = rec["func_calls"] - ADAM_STREAMS * steps
@@ -2325,11 +2307,7 @@ def phase_adam_snob(worst):
     from code_robchar_tpu_torch.ops import cuda_jacobi, prng
 
     dev = torch.device("cuda")
-    launches = dict.fromkeys(AMP_KERNELS + GRAD_KERNELS, 0)
-
-    def add(used):
-        for k, v in used.items():
-            launches[k] += v
+    launches = Counter()
 
     # the kernels at this path's shapes, before the counted runs
     adam = _zoo_optimizer(Adam)
@@ -2351,7 +2329,7 @@ def phase_adam_snob(worst):
     _expect_counts("adam path noiseless", used, [
         (grad_at, steps + opt.stats["probe_rounds"]),
         (amp_at, steps + ADAM_SEGMENTS)])
-    add(used)
+    launches += used
     if opt.stats["probe_rounds"] < 1:
         raise RuntimeError("adam: the fifth segment did not restart")
     out = {"adam_steps_s": steps / wall}
@@ -2359,7 +2337,7 @@ def phase_adam_snob(worst):
                                        ham_noisy=True, noise=0.05)
     _expect_counts("adam path ham_noisy", used, [(grad_at, steps),
                                                  (amp_at, steps + 1)])
-    add(used)
+    launches += used
     out["adam_noisy_steps_s"] = steps / wall
 
     rounds = snob.budget // 10
@@ -2375,14 +2353,14 @@ def phase_adam_snob(worst):
             raise RuntimeError("snob: bad batch result")
         return fid
 
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     run(25)
     times = []
     for seed in (26, 27, 28):
         start = time.perf_counter()
         fid = run(seed)
         times.append(time.perf_counter() - start)
-    used = _zoo_counts()
+    used = build.LAUNCHES - before
     wall = statistics.median(times)
     print(f"snob path: N=7 pool {ZOO_POOL}, {rounds} rounds of "
           f"{ZOO_POOL * 10} lanes: wall {times} s, median {wall:.4f} s, "
@@ -2392,13 +2370,13 @@ def phase_adam_snob(worst):
     _expect_counts("snob path, 4 runs", used, [
         (cuda_jacobi.amp_route(7, ZOO_POOL * 10), 4 * rounds),
         (cuda_jacobi.amp_route(7, ZOO_POOL), 4 * 2)])
-    add(used)
+    launches += used
     out["snob_restarts_s"] = ZOO_POOL / wall
 
     ropt = _zoo_optimizer(SNOB)
     ropt.run_until_completion_its = SNOB_RUN_BUDGET
     ropt.fid_threshold = 0.0
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     ropt.run()
     torch.cuda.synchronize()
@@ -2410,12 +2388,12 @@ def phase_adam_snob(worst):
           f"{len(rec.get('controllers', []))}")
     if not rec.get("controllers") or rec["func_calls"] + 1 < SNOB_RUN_BUDGET:
         raise RuntimeError("the SNOB budget run did not finish its budget")
-    used = _zoo_counts()
+    used = build.LAUNCHES - before
     batches = rec["repeats"] // 128
     _expect_counts("snob budget run", used, [
         (cuda_jacobi.amp_route(7, 128 * 10), batches * rounds),
         (cuda_jacobi.amp_route(7, 128), batches * 2)])
-    add(used)
+    launches += used
 
     out["ks"] = _adam_snob_card_vs_cpu()
     return launches, out
@@ -2511,10 +2489,11 @@ def _hold_single_point_builders():
     card, cpu = _sp_specs("cuda"), _sp_specs("cpu")
 
     def counted(label, fn, want):
-        _reset_zoo_counts()
+        before = build.LAUNCHES.copy()
         out = fn()
         torch.cuda.synchronize()
-        _expect_counts(f"single-point {label}", _zoo_counts(), want)
+        _expect_counts(f"single-point {label}", build.LAUNCHES - before,
+                       want)
         return out
 
     for name in card:
@@ -2670,7 +2649,7 @@ def phase_single_point():
     paths (b)-(d) by kernel and the readings."""
     from code_robchar_tpu_torch.models import NMPlus, PPO_en, nmplus
     from code_robchar_tpu_torch.models import objectives
-    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, prng, rollout
+    from code_robchar_tpu_torch.ops import cuda_jacobi, prng
 
     clock = [time.perf_counter()]
 
@@ -2681,13 +2660,8 @@ def phase_single_point():
 
     _hold_single_point_builders()
     part("(a) builders card vs cpu")
-    launches = dict.fromkeys(AMP_KERNELS + GRAD_KERNELS, 0)
-    launches.update(rollout=0, critic_bf16=0)
+    launches = Counter()
     out = {}
-
-    def add(used):
-        for k, v in used.items():
-            launches[k] += v
 
     # (b) the accelerated single-stream NM.  The rate runs take the
     # reference's start (a regular simplex around a uniform point) in the
@@ -2718,14 +2692,14 @@ def phase_single_point():
         opt.run_accelerated(60)          # warm-up
         seen.clear()
         objectives.make_infidelity = recording
-        _reset_zoo_counts()
+        before = build.LAUNCHES.copy()
         try:
             t0 = time.perf_counter()
             f, x = opt.run_accelerated(SP_NM_CALLS)
             wall = time.perf_counter() - t0
         finally:
             objectives.make_infidelity = make
-        used = _zoo_counts()
+        used = build.LAUNCHES - before
         st = opt.stats
         it = st["iterations"]
         first, best = (1 - float(seen[k]) for k in ("first", "least"))
@@ -2744,7 +2718,7 @@ def phase_single_point():
                 best >= 100 * TOL_KERNEL and progress):
             raise RuntimeError("run_accelerated: the search made no "
                                "progress that float32 resolves")
-        add(used)
+        launches += used
         out[f"nm_{label}_it_s"] = it / wall
     # the default box (-10, 10) x (0, 30), flat in float32 around a uniform
     # point: from a warm start (a regular simplex around the best of 1024
@@ -2758,9 +2732,9 @@ def phase_single_point():
     warm = nmplus.regular_simplex(xs[int(torch.argmax(fids))], opt._lower,
                                   opt._upper, prng.key(44))
     start_fid = float(objectives.fidelity_batch(opt.HH, warm, 0, 6).max())
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     f, x = opt.run_accelerated(SP_WARM_CALLS, simplex=warm)
-    used = _zoo_counts()
+    used = build.LAUNCHES - before
     st = opt.stats
     print(f"run_accelerated noiseless, default box, warm start: "
           f"{SP_WARM_CALLS} objective calls, {st['iterations']} iterations, "
@@ -2771,7 +2745,7 @@ def phase_single_point():
     if st["restarts"] or not 1 - f > start_fid:
         raise RuntimeError("run_accelerated made no progress from its "
                            "warm start")
-    add(used)
+    launches += used
     part("(b) run_accelerated")
     _sp_nm_card_vs_cpu()
     part("(b) run_accelerated card vs cpu")
@@ -2808,9 +2782,7 @@ def phase_single_point():
 
     ppo.stage_hook = mark
     objectives.make_wass_cost = recording
-    rollout.LAUNCHES_REG = rollout.LAUNCHES = 0
-    critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     torch.cuda.reset_peak_memory_stats()
     try:
         start = time.perf_counter()
@@ -2820,8 +2792,7 @@ def phase_single_point():
         wall = time.perf_counter() - start
     finally:
         objectives.make_wass_cost = make
-    used = _zoo_counts()
-    used.update(rollout=rollout.LAUNCHES_REG, critic_bf16=critic.LAUNCHES_BF16)
+    used = build.LAUNCHES - before
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.synchronize()
     split = {}
@@ -2836,17 +2807,17 @@ def phase_single_point():
           f"{chunks} launches of at most {chunk}): 2 epochs {wall:.4f} s, "
           f"{rate:.1f} env-steps/s; per epoch (ms, CUDA events): "
           + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-          + f"; launches over 2 epochs {used}; peak memory "
+          + f"; launches over 2 epochs {dict(used)}; peak memory "
           f"{peak:.3f} GiB (torch.cuda.max_memory_allocated)")
     # per epoch: the true fidelities and the targets' chunks on the
     # one-thread amplitude kernel, the rollout and the bf16 critic once
-    _expect_counts("ppo wass path", {k: used[k] for k in _zoo_counts()}, [
+    _expect_counts("ppo wass path", used, [
         (cuda_jacobi.amp_route(7, a_cnt * t_len), 2),
         (cuda_jacobi.amp_route(7, chunk), 2 * chunks)])
-    if used["rollout"] != 2 or used["critic_bf16"] != 2:
+    if used["actor_env_rollout_reg"] != 2 or used["critic_train_bf16"] != 2:
         raise RuntimeError("the Wasserstein PPO epoch missed the rollout or "
                            "critic kernel")
-    add(used)
+    launches += used
     out.update(ppo_wass_rate=rate, wass_ms=split.get("wass_targets"),
                peak_gib=peak)
     cpu_cost = make(held["spec"]._replace(h0=held["spec"].h0.cpu()),
@@ -2865,19 +2836,19 @@ def phase_single_point():
     # (d) ngd and wass_cost
     opt = NMPlus(7, 0, 6, testing=True, seed=5, noise=0.05, device="cuda",
                  dtype=torch.float32)
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     w, fid = opt.ngd(SP_NGD_STEPS)
     ngd_wall = time.perf_counter() - start
-    used_ngd = _zoo_counts()
+    used_ngd = build.LAUNCHES - before
     start = time.perf_counter()
     cost = opt.wass_cost(w, SP_WASS_REPS)
     wass_wall = time.perf_counter() - start
-    used = _zoo_counts()
+    used = build.LAUNCHES - before
     print(f"ngd: N=7, {SP_NGD_STEPS} steps {ngd_wall:.3f} s "
           f"({SP_NGD_STEPS / ngd_wall:.1f} steps/s), best fidelity "
           f"{fid:.6f}; wass_cost ({SP_WASS_REPS} reps) {wass_wall * 1e3:.2f} "
-          f"ms, cost {cost:.6f}; launches {used}")
+          f"ms, cost {cost:.6f}; launches {dict(used)}")
     _expect_counts("ngd", used_ngd, [(cuda_jacobi.grad_route(7, 1),
                                       SP_NGD_STEPS)])
     _expect_counts("ngd + wass_cost", used, [
@@ -2886,7 +2857,7 @@ def phase_single_point():
     if not (np.isfinite(w).all() and 0.0 <= fid <= 1 + 1e-5 and
             0.0 <= cost <= 1.0):
         raise RuntimeError("ngd or wass_cost: bad result")
-    add(used)
+    launches += used
     part("(d) ngd, wass_cost")
     return launches, out
 
@@ -2938,36 +2909,17 @@ ANCHOR_STORE = ("artifacts/selfgen/experiments/pipeline_selfgen/"
 #: kernel (its gradient kernel is the noiseless route, phases 5, 12, 13)
 PIPE_KERNELS = {"lbfgs": [AMP_KERNELS], "nmplus": [AMP_KERNELS],
                 "snob": [AMP_KERNELS],
-                "ppo": [("actor_env_rollout",), ("critic_train_bf16",),
+                "ppo": [("actor_env_rollout_reg",), ("critic_train_bf16",),
                         AMP_KERNELS]}
-
-
-def _pipeline_counts():
-    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, rollout
-
-    return dict(_zoo_counts(), herm_jacobi_fidelity=cuda_jacobi.LAUNCHES,
-                actor_env_rollout=rollout.LAUNCHES_REG,
-                actor_env_rollout_generic=rollout.LAUNCHES,
-                critic_train_bf16=critic.LAUNCHES_BF16,
-                critic_train=critic.LAUNCHES)
-
-
-def _reset_pipeline_counts():
-    from code_robchar_tpu_torch.ops import critic, cuda_jacobi, rollout
-
-    _reset_zoo_counts()
-    cuda_jacobi.LAUNCHES = 0
-    rollout.LAUNCHES_REG = rollout.LAUNCHES = 0
-    critic.LAUNCHES = critic.LAUNCHES_BF16 = 0
 
 
 class _FamilyRuns:
     """Wraps run() of every family of the port's registry for the
-    collect: each run starts with every kernel's count set to 0 and its
-    wall, func_calls and counts are read just after, synchronised.  It
-    also keeps each run's starting points, for the progress gate: the
-    zoo families' restart starts (the x0s of every ``_run_batch``) and
-    PPO's first epoch (the first points it offers to its top store)."""
+    collect: each run's wall, func_calls and launches (by C entry) are read
+    just after it, synchronised.  It also keeps each run's starting points,
+    for the progress gate: the zoo families' restart starts (the x0s of
+    every ``_run_batch``) and PPO's first epoch (the first points it offers
+    to its top store)."""
 
     def __init__(self):
         from code_robchar_tpu_torch.models import MODEL_REGISTRY
@@ -2988,12 +2940,12 @@ class _FamilyRuns:
         def run(model, *args, **kwargs):
             torch.cuda.synchronize()
             self.family, self.starts = name, []
-            _reset_pipeline_counts()
+            before = build.LAUNCHES.copy()
             start = time.perf_counter()
             out = fn(model, *args, **kwargs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
-            counts = _pipeline_counts()
+            counts = build.LAUNCHES - before
             self.family = None
             noise = model.env.noise if name == "ppo" else model.noise
             h0 = (model.Monte_env if name == "ppo" else model).HH
@@ -3162,7 +3114,6 @@ def _collect():
     wall = time.perf_counter() - start
     stalled = []
     for r in fam.runs:
-        used = {k: v for k, v in r["counts"].items() if v}
         rate = (f"{r['fcalls'] / r['wall']:.1f} objective calls/s"
                 if r["fcalls"] else "no controller reached the threshold")
         first = float(_true_fids(r["h0"], r["starts"], r["io"]).max())
@@ -3171,7 +3122,8 @@ def _collect():
         at_starts = _share_of_starts(r["stored"], r["starts"])
         print(f"  collect {r['family']} noise {r['noise']:g}: wall "
               f"{r['wall']:.3f} s, func_calls {r['fcalls']}, {rate}, "
-              f"launches {used}; noiseless fidelity (float64, cpu): best "
+              f"launches {dict(r['counts'])}; noiseless fidelity (float64, "
+              f"cpu): best "
               f"of the {len(r['starts'])} "
               f"{'first-epoch points' if r['family'] == 'ppo' else 'starts'}"
               f" {first:.4f}, best of the {len(kept)} stored {best:.4f}, "
@@ -3220,10 +3172,7 @@ def _collect():
                 "snob": ["0.0", "0.05", "0.1"],
                 "ppo": ["0.0", "0.05", "0.1"]}:
         raise RuntimeError(f"store keys {keys}")
-    launched = {}
-    for r in fam.runs:
-        for k, v in r["counts"].items():
-            launched[k] = launched.get(k, 0) + v
+    launched = sum((r["counts"] for r in fam.runs), Counter())
     return cells, launched, wall
 
 
@@ -3251,19 +3200,20 @@ def _hold_collect_kernels():
 
 def _characterise(cells):
     """(b) and (c): every set of the collected store through MCDataSim on
-    the card, then a fresh MCDataSim that must load every result."""
-    from code_robchar_tpu_torch.ops import cuda_jacobi
+    the card, then a fresh MCDataSim that must load every result.
+    Returns the launches of (b) and its wall."""
     from code_robchar_tpu_torch.utils import native_io
 
     total = len(PIPE_NOISES) * PIPE_CONTROLLERS * PIPE_BOOTREPS
     sim = _pipe_sim("pipeline_smoke", "experiments")
-    _reset_pipeline_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     with _StageClock() as clock:
         dicts = {(a, tn): sim.get_metrics_dict(tn, algoname=a)[a]
                  for a, tn in PIPE_SETS}
     wall = time.perf_counter() - start
-    launches = cuda_jacobi.LAUNCHES
+    used = build.LAUNCHES - before
+    launches = used["herm_jacobi_fidelity"]
     chunks = len(PIPE_SETS) * -(-total // 131072)
     print(f"(b) characterise: {len(PIPE_SETS)} sets x {total} Hamiltonians "
           f"= {len(PIPE_SETS) * total} through MCDataSim (N={PIPE_N}, "
@@ -3291,7 +3241,7 @@ def _characterise(cells):
                 raise RuntimeError(f"({a}, {tn}) {k!r}: shape {v.shape}")
 
     # (c) a fresh MCDataSim loads every result; no kernel launches
-    _reset_pipeline_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     again = _pipe_sim("pipeline_smoke", "experiments")
     same = all(_same_metrics(again.get_metrics_dict(tn, algoname=a)[a],
@@ -3307,23 +3257,24 @@ def _characterise(cells):
         native_io.SIDECAR = saved
     exact = list(read) == list(wrote) and all(
         read[k].tobytes() == wrote[k].tobytes() for k in wrote)
+    reloaded = build.LAUNCHES - before
     print(f"(c) reload: {len(PIPE_SETS)} metric dicts equal {same} in "
-          f"{reload_s:.3f} s, kernel 1 launches {cuda_jacobi.LAUNCHES}; "
-          f"load_mc without the sidecar {json_s:.3f} s: {sorted(read)} "
-          f"bit-equal to what was written {exact}")
-    if not same or cuda_jacobi.LAUNCHES or not exact:
+          f"{reload_s:.3f} s, launches {dict(reloaded)}; load_mc without "
+          f"the sidecar {json_s:.3f} s: {sorted(read)} bit-equal to what "
+          f"was written {exact}")
+    if not same or reloaded or not exact:
         raise RuntimeError("the reload recomputed or changed a result")
-    return launches, wall
+    return used, wall
 
 
 def _anchor(root):
     """(d): the shipped store's (ppo, "0.05") set against the JAX
     package's RIM sum, and a 16-controller slice against the plain path on
     the CPU: at float32 (the same draws) on every noise level, at float64
-    on the zero-noise level (no draws: the same Hamiltonians)."""
+    on the zero-noise level (no draws: the same Hamiltonians).  Returns
+    the launches of the anchor and the slice on the card."""
     import shutil
 
-    from code_robchar_tpu_torch.ops import cuda_jacobi
 
     name = "pipeline_selfgen"
     for sub, width in (("anchor", PIPE_CONTROLLERS), ("slice_cuda", 16),
@@ -3331,7 +3282,7 @@ def _anchor(root):
         os.makedirs(os.path.join(root, sub, name))
         shutil.copy(os.path.join(REPO, ANCHOR_STORE), os.path.join(
             root, sub, name, f"ppo_spin_7_0-6_c_{width}.le"))
-    _reset_pipeline_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     sim = _pipe_sim(name, os.path.join(root, "anchor"))
     md = sim.get_metrics_dict("0.05", algoname="ppo")["ppo"]
@@ -3339,13 +3290,14 @@ def _anchor(root):
     rim = np.asarray(md[RIM], dtype=np.float64)
     fid0 = sim.get_fid_dists("0.05", algoname="ppo")["ppo"][0]
     delta = float(rim.sum()) - ANCHOR_RIM_SUM
+    anchor_n = (build.LAUNCHES - before)["herm_jacobi_fidelity"]
     print(f"(d) anchor {ANCHOR_STORE} (ppo, 0.05): RIM tensor {rim.shape} "
           f"sum {rim.sum():.6f} vs the JAX package's {ANCHOR_RIM_SUM} at "
           f"float32 (delta {delta:+.6f}, tol {ANCHOR_TOL}; its float64 "
           f"draws give {ANCHOR_RIM_SUM_F64}, delta "
           f"{float(rim.sum()) - ANCHOR_RIM_SUM_F64:+.6f}); zero-noise "
           f"fidelity median {np.median(fid0):.4f}; wall {wall:.3f} s, "
-          f"kernel 1 launches {cuda_jacobi.LAUNCHES}")
+          f"kernel 1 launches {anchor_n}")
     if rim.shape != (len(PIPE_NOISES), PIPE_CONTROLLERS) or \
             not np.isfinite(rim).all() or abs(delta) > ANCHOR_TOL:
         raise RuntimeError(f"anchor RIM sum {rim.sum()} misses "
@@ -3367,7 +3319,7 @@ def _anchor(root):
             if not err <= TOL_SLICE:
                 raise RuntimeError(f"the pipeline slice disagrees with the "
                                    f"{dtype} plain path on {k!r}: {err}")
-    return cuda_jacobi.LAUNCHES
+    return build.LAUNCHES - before
 
 
 def _entry_point_alone():
@@ -3410,13 +3362,12 @@ def phase_pipeline():
         held = _hold_collect_kernels()
         print(f"  the collect's PPO kernels held: "
               f"{time.perf_counter() - start:.1f} s")
-        herm, char_s = _characterise(cells)
-        herm += _anchor(root)
+        char, char_s = _characterise(cells)
+        launched += char + _anchor(root)
     finally:
         os.chdir(here)
         shutil.rmtree(root, ignore_errors=True)
     _entry_point_alone()
-    launched["herm_jacobi_fidelity"] += herm
     return launched, dict(collect_s=collect_s, characterise_s=char_s,
                           held=held)
 
@@ -3507,15 +3458,14 @@ def _finite(label, *arrays):
 
 
 def _fig_stage(watch, name, sync_on, fn):
-    """``fn()`` with every count set to 0 just before; returns its result
-    and kernel 1's launches, timed by the Stopwatch and ``timed``."""
-    from code_robchar_tpu_torch.ops import cuda_jacobi
+    """``fn()`` timed by the Stopwatch and ``timed``; returns its result
+    and its launches."""
     from code_robchar_tpu_torch.utils.trace import timed
 
-    _reset_pipeline_counts()
+    before = build.LAUNCHES.copy()
     with watch.section(name), timed(name, sync_on=sync_on):
         out = fn()
-    return out, cuda_jacobi.LAUNCHES
+    return out, build.LAUNCHES - before
 
 
 def _fig_characterised(root, watch):
@@ -3536,7 +3486,8 @@ def _fig_characterised(root, watch):
         return {s: sim._rim_bands(s[0], s[1], FIG_NOISES, sim.topk)
                 for s in FIG_SETS}
 
-    bands, fig3_n = _fig_stage(watch, "(a) fig3 _rim_bands", probe, fig3)
+    bands, fig3_used = _fig_stage(watch, "(a) fig3 _rim_bands", probe, fig3)
+    fig3_n = fig3_used["herm_jacobi_fidelity"]
     rim0 = [float(np.median(c[0])) for c, _, _ in bands.values()]
     rim1 = [float(np.median(c[-1])) for c, _, _ in bands.values()]
     print(f"(a) fig3 _rim_bands: {len(FIG_SETS)} sets x {total} "
@@ -3558,8 +3509,9 @@ def _fig_characterised(root, watch):
                     for s in FIG_SETS}
         return taus, sim.vn_failures, buf.getvalue().count("\n")
 
-    (taus, vn, warned), fig4_n = _fig_stage(watch, "(a) fig4 pairwise_taus",
-                                            probe, fig4)
+    (taus, vn, warned), used = _fig_stage(watch, "(a) fig4 pairwise_taus",
+                                          probe, fig4)
+    fig4_n = used["herm_jacobi_fidelity"]
     t0 = [float(t[0, -1]) for t in taus.values()]
     print(f"(a) fig4 pairwise_taus: {len(taus)} tau matrices "
           f"{taus[FIG_SETS[0]].shape}, tau(sigma 0, sigma 0.1) "
@@ -3574,7 +3526,8 @@ def _fig_characterised(root, watch):
         sim = figs.ARIMGenerator(FIG_EXP, **kw)
         return {s: sim.arim_curve(s[0], s[1]) for s in FIG_SETS}
 
-    curves, fig5_n = _fig_stage(watch, "(a) fig5 arim_curve", probe, fig5)
+    curves, used = _fig_stage(watch, "(a) fig5 arim_curve", probe, fig5)
+    fig5_n = used["herm_jacobi_fidelity"]
     print(f"(a) fig5 arim_curve: " + "; ".join(
         f"{a}{'' if tn is None else ' ' + tn} {v[0]:.5f} -> {v[-1]:.5f} "
         f"(+-{e[-1]:.5f})" for (a, tn), (v, e) in curves.items())
@@ -3591,7 +3544,8 @@ def _fig_characterised(root, watch):
         sim = figs.ExploringRIMK(FIG_EXP, **_fig_kwargs(root))
         return sim.rim_k_tensor("ppo", noise_index=at)
 
-    rk, rimk_n = _fig_stage(watch, "(a) rimk rim_k_tensor", probe, rimk)
+    rk, used = _fig_stage(watch, "(a) rimk rim_k_tensor", probe, rimk)
+    rimk_n = used["herm_jacobi_fidelity"]
     print(f"(a) rimk rim_k_tensor(ppo, noise_index={at} -> \"0.05\"): "
           + ", ".join(f"{k} {v.shape} mean {float(v.mean()):.5f}"
                       for k, v in rk.items())
@@ -3600,7 +3554,7 @@ def _fig_characterised(root, watch):
     if fig4_n or fig5_n or rimk_n:
         raise RuntimeError(f"a reload launched kernel 1: fig4 {fig4_n}, "
                            f"fig5 {fig5_n}, rimk {rimk_n}")
-    return curves, fig3_n
+    return curves, fig3_used
 
 
 def _fig8_pass(root, watch, label):
@@ -3621,8 +3575,9 @@ def _fig8(root, watch):
     """(b): fig 8's ARIMs over every (marker, algo, nlvl) of the scaling
     store, then a second pass that must load every pickle."""
     start = time.perf_counter()
-    rows, n = _fig8_pass(root, watch, "(b) fig8 get_arims")
+    rows, launched = _fig8_pass(root, watch, "(b) fig8 get_arims")
     wall = time.perf_counter() - start
+    n = launched["herm_jacobi_fidelity"]
     ckpts = sum(len(a) for a, _ in rows.values())
     print(f"(b) fig8 get_arims: {len(rows)} (marker, algo, nlvl) cells, "
           f"{ckpts} checkpoints of 100 controllers x {len(FIG_NOISES)} x "
@@ -3639,7 +3594,8 @@ def _fig8(root, watch):
     if n != ckpts:
         raise RuntimeError(f"fig 8: {n} launches for {ckpts} checkpoints")
     start = time.perf_counter()
-    again, n2 = _fig8_pass(root, watch, "(b) fig8 pickles")
+    again, used = _fig8_pass(root, watch, "(b) fig8 pickles")
+    n2 = used["herm_jacobi_fidelity"]
     same = list(again) == list(rows) and all(
         np.array_equal(again[c][0], rows[c][0]) and again[c][1] == rows[c][1]
         for c in rows)
@@ -3647,7 +3603,7 @@ def _fig8(root, watch):
           f"kernel 1 launches {n2}; {time.perf_counter() - start:.3f} s")
     if n2 or not same:
         raise RuntimeError("fig 8's second pass swept or changed a cell")
-    return rows, n
+    return rows, launched
 
 
 def _fig1(root, watch):
@@ -3668,8 +3624,9 @@ def _fig1(root, watch):
                                  controllers=100)
         return ex, ex.get_sd_results(FIG1_NOISES)
 
-    (ex, (noises, fl, fp)), n = _fig_stage(
+    (ex, (noises, fl, fp)), launched = _fig_stage(
         watch, "(c) fig1 get_sd_results", torch.zeros(1, device="cuda"), run)
+    n = launched["herm_jacobi_fidelity"]
     xs, ca, cb = ex.joint_ecdfs(fl[FIG1_ECDF_LEVEL, 0], fp[FIG1_ECDF_LEVEL, 0])
     print(f"(c) fig1 get_sd_results: lbfgs and ppo {ex.rlc_index!r}, "
           f"{fl.shape} {fl.dtype} each over sigma {noises[0]:.1f}.."
@@ -3685,7 +3642,7 @@ def _fig1(root, watch):
         raise RuntimeError(f"fig 1: {ex.rlc_index} {fl.shape} {n}")
     if (np.diff(ca) < 0).any() or (np.diff(cb) < 0).any():
         raise RuntimeError("fig 1's joint ECDFs are not monotone")
-    return n
+    return launched
 
 
 def _fig_holds(root, curves, rows):
@@ -3770,16 +3727,16 @@ def phase_figures():
     watch = Stopwatch()
     try:
         _fig_stores(root)
-        curves, herm = _fig_characterised(root, watch)
-        rows, fig8_n = _fig8(root, watch)
-        herm += fig8_n + _fig1(root, watch)
+        curves, launched = _fig_characterised(root, watch)
+        rows, fig8 = _fig8(root, watch)
+        launched += fig8 + _fig1(root, watch)
         worst = _fig_holds(root, curves, rows)
         _fig_checkpoint(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print("  stopwatch: " + watch.report().replace("\n", "; "))
-    print(f"  kernel 1 launches in phase 16: {herm}")
-    return herm, dict(fig_worst=worst, fig8_s=watch.totals[
+    print(f"  launches in phase 16: {dict(launched)}")
+    return launched, dict(fig_worst=worst, fig8_s=watch.totals[
         "(b) fig8 get_arims"])
 
 
@@ -3809,10 +3766,10 @@ class _SnobfitRecorder:
 
 def _snobfit_run(label, worst, **kw):
     """SNOBSkquant.run() at N=7 on the vendored engine, budget mode
-    (SNOBFIT_RESTARTS restarts of SNOBFIT_BUDGET), with the four zoo
-    kernels' counts set to 0 just before and read just after; then every
-    amplitude launch of the run held against the plain version on the
-    card.  Returns (the optimizer, the recorder, the wall, the counts)."""
+    (SNOBFIT_RESTARTS restarts of SNOBFIT_BUDGET), its launches counted;
+    then every amplitude launch of the run held against the plain version
+    on the card.  Returns (the optimizer, the recorder, the wall, the
+    launches)."""
     from code_robchar_tpu_torch.models import SNOBSkquant
     from code_robchar_tpu_torch.ops import cuda_jacobi, realform
 
@@ -3835,7 +3792,7 @@ def _snobfit_run(label, worst, **kw):
         return phr, phi
 
     cuda_jacobi.transfer_amp_sym = recorded
-    _reset_zoo_counts()
+    before = build.LAUNCHES.copy()
     try:
         start = time.perf_counter()
         opt.run()
@@ -3843,7 +3800,7 @@ def _snobfit_run(label, worst, **kw):
         wall = time.perf_counter() - start
     finally:
         cuda_jacobi.transfer_amp_sym = entry
-    used = _zoo_counts()
+    used = build.LAUNCHES - before
 
     # every launch of the run against the plain version on the card, at
     # phase 4's bar; the run's batches in one plain call a shape group
@@ -3877,7 +3834,7 @@ def phase_snobfit(worst):
     from code_robchar_tpu_torch.models.env import Environment
     from code_robchar_tpu_torch.ops import cuda_jacobi
 
-    launches = dict.fromkeys(AMP_KERNELS + GRAD_KERNELS, 0)
+    launches = Counter()
     # SNOBFIT suggests n + 6 points a round in its n = 8 dimensions
     route = cuda_jacobi.amp_route(7, 8 + 6)
     out = {}
@@ -3902,7 +3859,8 @@ def phase_snobfit(worst):
               f"{r['func_calls']}; scored batches {n_batches} (sizes "
               f"{sizes}), {sum(rec.batches)} points; scoring "
               f"{rec.score_s:.2f} s, host (SNOBFIT's numpy) {host_s:.2f} s, "
-              f"host share {host_s / wall:.3f}; launches {used}; best_fid "
+              f"host share {host_s / wall:.3f}; launches {dict(used)}; "
+              f"best_fid "
               f"{r['best_fid']!r}; stored {len(stored)}, best noiseless "
               f"fidelity stored {best_stored:.6f} against the starts' "
               f"{best_start:.6f}, share of stored at a start {share:.3f}")
@@ -3922,8 +3880,7 @@ def phase_snobfit(worst):
         elif not best_stored > best_start:
             raise RuntimeError(f"snobfit {label}: the stored controllers do "
                                f"not beat their starts")
-        for k, v in used.items():
-            launches[k] += v
+        launches += used
         out[label] = len(rec.starts) / wall
 
     env = Environment(7, 0, 6, device="cuda")
@@ -3950,8 +3907,8 @@ MESH_ENTRIES = 4
 def _sharded_pool(mesh, cls, seed):
     """One N=7 pool of MESH_POOL restarts: the unsharded batch, the batch
     sharded over ``mesh`` twice, and over a one-entry mesh; each compared
-    as the JAX package's tests/test_parallel.py does.  Returns the walls
-    (unsharded, sharded) and the counts of the sharded runs."""
+    as the JAX package's tests/test_parallel.py does.  Returns the
+    launches of the two sharded runs."""
     from code_robchar_tpu_torch.ops import prng
     from code_robchar_tpu_torch.parallel import Mesh, sharded_run_batch
 
@@ -3967,11 +3924,11 @@ def _sharded_pool(mesh, cls, seed):
         return res, time.perf_counter() - start
 
     ref, wall0 = timed(lambda: opt._run_batch(x0s, keys))
-    _reset_pipeline_counts()
+    before = build.LAUNCHES.copy()
     got, wall = timed(lambda: sharded_run_batch(mesh, opt, x0s, keys))
     stats = dict(opt.stats)
     again, wall2 = timed(lambda: sharded_run_batch(mesh, opt, x0s, keys))
-    used = _pipeline_counts()
+    used = build.LAUNCHES - before
     one, _ = timed(lambda: sharded_run_batch(Mesh(["cuda:0"]), opt, x0s,
                                              keys))
     same = all(torch.equal(getattr(got, k), getattr(again, k))
@@ -3992,7 +3949,7 @@ def _sharded_pool(mesh, cls, seed):
           f"{float(got.true_fid.mean()):.6f} vs unsharded "
           f"{float(ref.true_fid.mean()):.6f} (gap {gap:.2e}, bar 5e-2); "
           f"restarts apart from the unsharded {moved}; stats {stats}; "
-          f"launches of the two sharded runs {used} "
+          f"launches of the two sharded runs {dict(used)} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"mesh (b) {cls.name}: the sharded pool failed")
@@ -4013,23 +3970,19 @@ def phase_mesh(mc_first, mc_wall, worst, ppo_err):
           f"a {MESH_ENTRIES}-entry mesh of cuda:0 (the blocks run one after "
           f"another from the host on the one card)")
     mesh = Mesh(["cuda:0"] * MESH_ENTRIES)
-    total = {}
-
-    def add(used):
-        for k, v in used.items():
-            total[k] = total.get(k, 0) + v
+    total = Counter()
 
     # (a) the MC headline at full width, sharded
     h0, ctrl, noises = _mc_inputs()
-    _reset_pipeline_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     md = sharded_mc_metrics(mesh, h0.to("cuda"), ctrl, noises, prng.key(1),
                             MC_BOOTREPS, 0, 6, complex_offdiag=True,
                             alpha=0.05)
     checksum = float(md[engine.RIM_NAME].sum(dtype=torch.float64))
     wall = time.perf_counter() - start
-    used = _pipeline_counts()
-    add(used)
+    used = build.LAUNCHES - before
+    total += used
     equal = sorted(k for k in md if torch.equal(md[k], mc_first[k]))
     want = float(mc_first[engine.RIM_NAME].sum(dtype=torch.float64))
     ok = (len(md) == 15 and len(equal) == 15 and checksum == want and
@@ -4047,7 +4000,7 @@ def phase_mesh(mc_first, mc_wall, worst, ppo_err):
 
     # (b) the zoo pools, sharded
     for cls, seed in ((LBFGS, 31), (NMPlus, 32)):
-        add(_sharded_pool(mesh, cls, seed))
+        total += _sharded_pool(mesh, cls, seed)
 
     # (c) PPO at bench.py's configuration, the agents sharded, two epochs
     # through run(); beside it the same unsharded; the block shapes' kernels
@@ -4070,16 +4023,16 @@ def phase_mesh(mc_first, mc_wall, worst, ppo_err):
                      run_until_completion_its=10**12, num_agents=PPO_AGENTS,
                      rollout_sweeps=4, mesh=m, device="cuda",
                      dtype=torch.float32)
-        _reset_pipeline_counts()
+        before = build.LAUNCHES.copy()
         start = time.perf_counter()
         best = ppo.run(epochs=2, steps_per_epoch=PPO_STEPS)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - start
-        used = _pipeline_counts()
+        used = build.LAUNCHES - before
         if m is not None:
-            add(used)
+            total += used
             blocks = 2 * MESH_ENTRIES
-            ok = (used["actor_env_rollout"] == blocks and
+            ok = (used["actor_env_rollout_reg"] == blocks and
                   used["critic_train_bf16"] == blocks and
                   used["sym_jacobi_amp"] == blocks and
                   used["critic_train"] == 0 and 0 <= best <= 1 + 1e-5)
@@ -4088,7 +4041,8 @@ def phase_mesh(mc_first, mc_wall, worst, ppo_err):
                   f"run(): {walls['sharded']:.3f} s against unsharded "
                   f"{walls['unsharded']:.3f} s (host-paced); "
                   f"{2 * PPO_AGENTS * PPO_STEPS / walls['sharded']:.1f} "
-                  f"env-steps/s; launches {used} (rollout, bf16 critic and "
+                  f"env-steps/s; launches {dict(used)} (rollout, bf16 "
+                  f"critic and "
                   f"the true fidelities once a block an epoch: {blocks}); "
                   f"best reward {best:.6f} {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -4108,7 +4062,7 @@ def phase_mesh(mc_first, mc_wall, worst, ppo_err):
                                  dtype=torch.float32, device="cuda")
             _hold_zoo_kernels("adam sharded block", *_lanes_of(opt, xs),
                               opt.HH, xs, 0, 6, worst)
-        _reset_pipeline_counts()
+        before = build.LAUNCHES.copy()
         start = time.perf_counter()
         if m is None:
             res = opt._run_batch(torch.as_tensor(x0s, dtype=torch.float32,
@@ -4117,13 +4071,12 @@ def phase_mesh(mc_first, mc_wall, worst, ppo_err):
             res = sharded_run_batch(m, opt, x0s, keys)
         float(res.fid.sum())
         walls[name] = time.perf_counter() - start
-        used = _pipeline_counts()
+        used = build.LAUNCHES - before
         if m is not None:
-            add(used)
+            total += used
             blk = ADAM_STREAMS // MESH_ENTRIES
             steps = opt.segment_its
-            _expect_counts("mesh (d) adam", {k: used[k] for k in
-                                             AMP_KERNELS + GRAD_KERNELS}, [
+            _expect_counts("mesh (d) adam", used, [
                 (cuda_jacobi.grad_route(7, blk), MESH_ENTRIES * steps),
                 (cuda_jacobi.amp_route(7, blk), MESH_ENTRIES * (steps + 1))])
             ok = bool(torch.isfinite(res.fid).all()) and \
@@ -4138,14 +4091,14 @@ def phase_mesh(mc_first, mc_wall, worst, ppo_err):
                                    "failed")
 
     # (e) the dry run
-    _reset_pipeline_counts()
+    before = build.LAUNCHES.copy()
     start = time.perf_counter()
     dryrun.dryrun_multichip(MESH_ENTRIES)
-    used = _pipeline_counts()
-    add(used)
+    used = build.LAUNCHES - before
+    total += used
     print(f"mesh (e) dry run: {time.perf_counter() - start:.2f} s, "
-          f"launches {used}")
-    print(f"  kernel launches in phase 18: {total}")
+          f"launches {dict(used)}")
+    print(f"  kernel launches in phase 18: {dict(total)}")
     return total
 
 
@@ -4157,21 +4110,11 @@ def _run(phase, *args):
     return out
 
 
-def _run_drawing(phase, *args):
-    """``_run(phase, *args)`` with the draw kernel's count set to 0 just
-    before: (its result, the draw kernel's launches in the phase)."""
-    from code_robchar_tpu_torch.ops import mc_draws
-
-    mc_draws.LAUNCHES = 0
-    out = _run(phase, *args)
-    return out, mc_draws.LAUNCHES
-
-
 def main():
     smi = _run(phase_device)
     res = _run(phase_build)
     err, ms, plain_ms, lib_ms, bound = _run(phase_kernel)
-    launches, wall, rate, checksum, mc_first, draws, draw = \
+    mc_launches, wall, rate, checksum, mc_first, draw = \
         _run(phase_main_path)
     zoo_err, zoo_ms, floor = _run(phase_zoo_kernels)
     zoo_launches, zoo = _run(phase_zoo_path, zoo_err)
@@ -4179,83 +4122,60 @@ def main():
     ppo_err, ppo_ms = _run(phase_ppo_kernels)
     ppo_launches, ppo_rate, amp_err, amp_ms = _run(phase_ppo_path)
     _run(phase_ppo_checks)
-    probe = _run(phase_probes)
+    probe_launches, probe = _run(phase_probes)
     noisy = _run(phase_shot_noise)
     adam_snob_launches, adam_snob = _run(phase_adam_snob, zoo_err)
     sp_launches, sp = _run(phase_single_point)
-    (pipe_launches, pipe), pipe_draws = _run_drawing(phase_pipeline)
-    (fig_launches, fig), fig_draws = _run_drawing(phase_figures)
+    pipe_launches, pipe = _run(phase_pipeline)
+    fig_launches, fig = _run(phase_figures)
     snobfit_launches, snobfit = _run(phase_snobfit, zoo_err)
-    mesh_launches, mesh_draws = _run_drawing(phase_mesh, mc_first, wall,
-                                              zoo_err, ppo_err)
+    mesh_launches = _run(phase_mesh, mc_first, wall, zoo_err, ppo_err)
+    # the launches on the paths of phases 3, 5, 8, 10, 12, 13 and 15-18, by
+    # C entry; the holds' and the timing loops' are not among them
+    path = (mc_launches + zoo_launches + ppo_launches + probe_launches
+            + adam_snob_launches + sp_launches + pipe_launches + fig_launches
+            + snobfit_launches + mesh_launches)
     src = "code_robchar_tpu_torch/csrc/"
 
-    def entry(name, replaces, n_launch, max_err, times, lib):
+    def entry(name, replaces, max_err, times, lib, source=None):
         k_ms, p_ms, (b_ms, b_by) = times
-        return {"name": name, "route": "cuda", "source": src + name + ".cu",
-                "replaces": replaces, "launches": n_launch,
+        return {"name": name, "route": "cuda",
+                "source": src + (source or name) + ".cu",
+                "replaces": replaces, "launches": path[name],
                 "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
     def zoo_entry(name, replaces, times=None):
         # timed at the batch that the kernel's path gives it
         k_ms, p_ms, lib, bnd = times or zoo_ms[name, LINE_BATCH[name]]
-        return dict(entry(name, replaces, zoo_launches[name], zoo_err[name],
-                          (k_ms, p_ms, bnd), lib),
-                    source=src + name.replace("_group", "") + ".cu")
+        return entry(name, replaces, zoo_err[name], (k_ms, p_ms, bnd), lib,
+                     name.replace("_group", ""))
 
     amp_at, grad_at = "code_robchar_tpu/ops/pallas_jacobi.py:356", \
         "code_robchar_tpu/ops/pallas_jacobi.py:408"
-    # the one-thread amplitude kernel: launches on the PPO path and the
-    # SNOB pool's rounds; error and times from the PPO path's own batch
-    # (phase 8)
-    zoo_launches["sym_jacobi_amp"] = ppo_launches["amp"]
-    for launched in (adam_snob_launches, sp_launches):
-        for name in zoo_launches:
-            zoo_launches[name] += launched[name]
-    for name in ("rollout", "critic_bf16"):
-        ppo_launches[name] += sp_launches[name]
-    # phase 15's launches: the collect's zoo and PPO kernels, and kernel 1
-    # in the characterisation
-    for name in zoo_launches:
-        zoo_launches[name] += pipe_launches[name]
-    ppo_launches["rollout"] += pipe_launches["actor_env_rollout"]
-    ppo_launches["critic_bf16"] += pipe_launches["critic_train_bf16"]
+    # the one-thread amplitude kernel's error and times from the PPO
+    # path's own batch (phase 8)
     for name, held in pipe["held"].items():
         ppo_err[name] = max(ppo_err[name], held)
-    launches += pipe_launches["herm_jacobi_fidelity"]
-    launches += fig_launches     # phase 16's: the figures' sweeps
-    # phases 17 and 18: SNOBSkquant's batches, the mesh's paths
-    for name in zoo_launches:
-        zoo_launches[name] += snobfit_launches[name] + mesh_launches[name]
-    launches += mesh_launches["herm_jacobi_fidelity"]
-    # the draw kernel runs once before each of kernel 1's launches on the
-    # card (mc/engine._fids), in the same phases
-    draws += pipe_draws + fig_draws + mesh_draws
-    ppo_launches["rollout"] += mesh_launches["actor_env_rollout"]
-    ppo_launches["critic_bf16"] += mesh_launches["critic_train_bf16"]
-    ppo_launches["critic"] += mesh_launches["critic_train"]
     zoo_err["sym_jacobi_amp"] = max(zoo_err["sym_jacobi_amp"], amp_err)
     kernels = [
         entry("herm_jacobi_fidelity",
-              "code_robchar_tpu/ops/pallas_jacobi.py:209", launches, err,
+              "code_robchar_tpu/ops/pallas_jacobi.py:209", err,
               (ms, plain_ms, bound), lib_ms),
         entry("mc_draw_lanes", "none (XLA ops: code_robchar_tpu/mc/"
-              "engine.py:69)", draws, *draw, None),
+              "engine.py:69)", *draw, None),
         zoo_entry("sym_jacobi_amp_group", amp_at),
         zoo_entry("sym_jacobi_amp", amp_at, amp_ms),
         zoo_entry("sym_jacobi_grad_group", grad_at),
         zoo_entry("sym_jacobi_grad", grad_at),
-        entry("actor_env_rollout",
+        entry("actor_env_rollout_reg",
               "code_robchar_tpu/ops/pallas_rollout.py:127",
-              ppo_launches["rollout"], ppo_err["rollout"],
-              ppo_ms["rollout"], None),
+              ppo_err["rollout"], ppo_ms["rollout"], None,
+              "actor_env_rollout"),
         entry("critic_train", "code_robchar_tpu/ops/pallas_critic.py:54",
-              ppo_launches["critic"], ppo_err["critic"], ppo_ms["critic"],
-              None),
+              ppo_err["critic"], ppo_ms["critic"], None),
         entry("critic_train_bf16", "code_robchar_tpu/ops/pallas_critic.py:54",
-              ppo_launches["critic_bf16"], ppo_err["critic_bf16"],
-              ppo_ms["critic_bf16"], None),
+              ppo_err["critic_bf16"], ppo_ms["critic_bf16"], None),
         entry("alu_probe", "artifacts/perf/roofline.py:272",
               *probe["alu_probe"], None),
         entry("tanh_probe", "artifacts/perf/tanh_microbench.py:31",
@@ -4266,7 +4186,8 @@ def main():
           f"restarts/s (N=7, pool {ZOO_POOL}); KS {ks}; PPO "
           f"{ppo_rate:.1f} env-steps/s (N=7, {PPO_AGENTS} agents), "
           f"one-thread amplitude launches on the PPO path "
-          f"{ppo_launches['amp']}; launch_floor_ms {floor}; shot noise "
+          f"{ppo_launches['sym_jacobi_amp']}; launch_floor_ms {floor}; shot "
+          f"noise "
           + ", ".join(f"{k} {v:.1f}" for k, v in noisy.items())
           + f" restarts/s (PPO env-steps/s); Adam (N=7, 64 streams) "
           f"{adam_snob['adam_steps_s']:.1f} steps/s, ham_noisy "
@@ -4286,6 +4207,10 @@ def main():
           + ", ".join(f"{k} {v:.2f}" for k, v in snobfit.items())
           + f" restarts/s; card {smi}")
     print(json.dumps({"kernels": kernels}))
+    # every C entry's launches in this process, the holds' and the timing
+    # loops' too
+    print(json.dumps({"launches": dict(sorted(build.LAUNCHES.items()))}))
+    draws, launches = path["mc_draw_lanes"], path["herm_jacobi_fidelity"]
     if draws != launches:
         raise RuntimeError(f"the path phases launched the draw kernel "
                            f"{draws} times and kernel 1 {launches} times")

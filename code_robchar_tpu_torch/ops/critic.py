@@ -33,8 +33,9 @@ Jacobi kernels are full float32.
 ``csrc/critic_train_bf16.cu`` (wgmma on the bf16 tensor cores) for
 ``fast_dot=True``, ``csrc/critic_train.cu`` (float32 FMAs) otherwise; CUDA
 float64 raises ``ValueError``.  There is no fallback, from either kernel to
-the other or to the plain version.  ``LAUNCHES`` and ``LAUNCHES_BF16`` count
-the two kernels' launches.
+the other or to the plain version.  ``build.LAUNCHES`` counts the two
+kernels' launches under their C entries' names, ``critic_train`` and
+``critic_train_bf16``.
 
 Packed layout, per agent: theta = [W1 (d+1, h), W2 (h+1, h), w3 (h+1)]
 row-major, each Dense kernel with its bias as the last row; the Adam
@@ -43,20 +44,11 @@ moments in the same layout; count (A,) int32.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
-from code_robchar_tpu_torch.ops import cuda_jacobi
 from code_robchar_tpu_torch.utils import build
 
-#: launches of csrc/critic_train.cu in this process (never incremented by
-#: the CPU path)
-LAUNCHES = 0
-#: launches of csrc/critic_train_bf16.cu in this process
-LAUNCHES_BF16 = 0
 #: batch rows per tile of the float32 kernel at most (kMaxRows in
 #: critic_train.cu); its tiles are multiples of PATCH_ROWS (kPR), the rows
 #: of a thread's patch in the forward and dz1 products
@@ -208,18 +200,11 @@ def value_loss(theta, obs, rets, h: int) -> float:
     return float(((v - rets) ** 2).mean())
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-@functools.cache
-def _entry(fast_dot: bool):
-    lib = build.load()
-    fn = lib.critic_train_bf16 if fast_dot else lib.critic_train
-    # 10 pointers; d1, h, T, iters; lr, beta1, 1-beta1, beta2, 1-beta2,
-    # log beta1, log beta2, eps, 2/T; A, device; stream
-    fn.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 9 + [_I] * 2 + [_P]
-    fn.restype = ctypes.c_int
-    return fn
+# 10 pointers; d1, h, T, iters; lr, beta1, 1-beta1, beta2, 1-beta2,
+# log beta1, log beta2, eps, 2/T; A
+_ARGS = (build.P,) * 10 + (build.I,) * 4 + (build.F,) * 9 + (build.I,)
+_ENTRIES = {True: build.kernel("critic_train_bf16", *_ARGS),
+            False: build.kernel("critic_train", *_ARGS)}
 
 
 def check_critic_args(theta, mu, nu, count, obs, rets, *, h: int,
@@ -230,16 +215,8 @@ def check_critic_args(theta, mu, nu, count, obs, rets, *, h: int,
     the limits of the kernel that ``fast_dot`` names (the bf16 kernel: at
     most 15 inputs and a width of 111; both: the state of one agent within
     a block's shared memory)."""
-    floats = dict(theta=theta, mu=mu, nu=nu, obs=obs, rets=rets)
-    for name, x in floats.items():
-        if x.dtype != torch.float32:
-            raise ValueError(f"the critic kernel is float32 only; {name} is "
-                             f"{x.dtype}")
-    if count.dtype != torch.int32:
-        raise ValueError(f"count must be int32, got {count.dtype}")
-    for name, x in dict(floats, count=count).items():
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    build.check_layout({"count": torch.int32}, theta=theta, mu=mu, nu=nu,
+                       obs=obs, rets=rets, count=count)
     if obs.dim() != 3:
         raise ValueError(f"obs: expected (A, T, d), got {tuple(obs.shape)}")
     a_cnt, t_len, d = obs.shape
@@ -270,9 +247,8 @@ def critic_train_cuda(theta, mu, nu, count, obs, rets, *, h: int, iters: int,
     tensors on one CUDA device, count int32, shapes as the plain
     version's.  ``fast_dot`` picks the bf16 tensor-core kernel, which takes
     d + 1 <= 16 inputs and widths h <= 111."""
-    global LAUNCHES, LAUNCHES_BF16
-    cuda_jacobi._check_on_card(theta=theta, mu=mu, nu=nu, count=count,
-                               obs=obs, rets=rets)
+    build.check_device(theta=theta, mu=mu, nu=nu, count=count, obs=obs,
+                       rets=rets)
     check_critic_args(theta, mu, nu, count, obs, rets, h=h,
                       fast_dot=fast_dot)
     a_cnt, t_len, d = obs.shape
@@ -282,20 +258,11 @@ def critic_train_cuda(theta, mu, nu, count, obs, rets, *, h: int, iters: int,
     if a_cnt == 0:
         return outs
     lb1, lb2 = _log_betas(beta1, beta2)
-    dev = obs.device
-    err = _entry(bool(fast_dot))(
+    _ENTRIES[bool(fast_dot)](
+        obs.device,
         *(x.data_ptr() for x in (theta, mu, nu, count, obs, rets, *outs)),
         d + 1, h, t_len, int(iters), lr, beta1, 1.0 - beta1, beta2,
-        1.0 - beta2, lb1, lb2, eps, 2.0 / t_len, a_cnt, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"critic_train launch failed: CUDA error {err} "
-                           f"(h={h}, T={t_len}, A={a_cnt}, "
-                           f"fast_dot={fast_dot})")
-    if fast_dot:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
+        1.0 - beta2, lb1, lb2, eps, 2.0 / t_len, a_cnt)
     return outs
 
 

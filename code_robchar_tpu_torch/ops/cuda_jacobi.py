@@ -27,15 +27,11 @@ one thread per matrix, and one thread per matrix (``sym_jacobi_amp``,
 ``sym_jacobi_grad``) for batches that fill it.
 
 There is no fallback: a kernel that fails to build or launch raises.
-``LAUNCHES``, ``SYM_AMP_LAUNCHES``, ``SYM_AMP_GROUP_LAUNCHES``,
-``SYM_GRAD_LAUNCHES`` and ``SYM_GRAD_GROUP_LAUNCHES`` count each kernel's
-launches, so a run can show that its main path went through the kernels.
+``build.LAUNCHES`` counts each C entry's launches, so a run can show that
+its main path went through the kernels.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
@@ -43,16 +39,8 @@ from code_robchar_tpu_torch.ops import realform
 from code_robchar_tpu_torch.ops.realform import pair_schedule  # noqa: F401
 from code_robchar_tpu_torch.utils import build
 
-#: launches in this process of herm_jacobi_fidelity, sym_jacobi_amp,
-#: sym_jacobi_amp_group, sym_jacobi_grad and sym_jacobi_grad_group (never
-#: incremented by the CPU path)
-LAUNCHES = 0
-SYM_AMP_LAUNCHES = 0
-SYM_AMP_GROUP_LAUNCHES = 0
-SYM_GRAD_LAUNCHES = 0
-SYM_GRAD_GROUP_LAUNCHES = 0
 #: matrix sizes the kernels are instantiated for
-MIN_N, MAX_N = 2, 10
+MIN_N, MAX_N = build.MIN_N, build.MAX_N
 #: smallest n of the lane-group kernels: n = 2 has one pivot a stage, so
 #: its group would be a single lane
 GROUP_MIN_N = 3
@@ -73,25 +61,19 @@ GRAD_GROUP_MAX_B = 24576
 EPS = realform._eps_for(torch.float32)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    # pointers, then n, in_spin, out_spin, sweeps, eps, B, device, stream
-    "herm_jacobi_fidelity": [_P] * 4,
-    "sym_jacobi_amp": [_P] * 3,
-    "sym_jacobi_amp_group": [_P] * 3,
-    "sym_jacobi_grad": [_P] * 4,
-    "sym_jacobi_grad_group": [_P] * 4,
-    "launch_floor": [_P] * 3,
-    "angles_probe": [_P] * 3,
-    "herm_angles_probe": [_P] * 3,
-}
-#: the launch count of each real symmetric kernel
-_COUNTER = {
-    "sym_jacobi_amp": "SYM_AMP_LAUNCHES",
-    "sym_jacobi_amp_group": "SYM_AMP_GROUP_LAUNCHES",
-    "sym_jacobi_grad": "SYM_GRAD_LAUNCHES",
-    "sym_jacobi_grad_group": "SYM_GRAD_GROUP_LAUNCHES",
-}
+_P = build.P
+#: the arguments of every entry after its pointers: n, in_spin, out_spin,
+#: sweeps, eps, B
+_SIZES = (build.I,) * 4 + (build.F, build.LL)
+_KERNELS = {k.__name__: k for k in (
+    build.kernel("herm_jacobi_fidelity", _P, _P, _P, _P, *_SIZES),
+    build.kernel("sym_jacobi_amp", _P, _P, _P, *_SIZES),
+    build.kernel("sym_jacobi_amp_group", _P, _P, _P, *_SIZES),
+    build.kernel("sym_jacobi_grad", _P, _P, _P, _P, *_SIZES),
+    build.kernel("sym_jacobi_grad_group", _P, _P, _P, _P, *_SIZES),
+    build.kernel("launch_floor", _P, _P, _P, *_SIZES),
+    build.kernel("angles_probe", _P, _P, _P, *_SIZES),
+    build.kernel("herm_angles_probe", _P, _P, _P, *_SIZES))}
 
 
 def amp_route(n: int, b: int) -> str:
@@ -109,55 +91,12 @@ def grad_route(n: int, b: int) -> str:
     return "sym_jacobi_grad"
 
 
-@functools.cache
-def _entry(name: str):
-    fn = getattr(build.load(), name)
-    fn.argtypes = _ARGTYPES[name] + [_I, _I, _I, _I, ctypes.c_float,
-                                     ctypes.c_longlong, _I, _P]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, tensors, n, in_spin, out_spin, sweeps, b):
-    """Call the C entry ``name`` on the current stream of the tensors'
-    device; raise on a launch error."""
+    """Launch the C entry ``name`` on the tensors' device."""
     if sweeps is None:
         sweeps = realform._sweeps_for(torch.float32, n)
-    dev = tensors[0].device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry(name)(*(x.data_ptr() for x in tensors), n, in_spin,
-                       out_spin, sweeps, EPS, b, dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} (n={n}, "
-                           f"B={b})")
-
-
-def _check_tensors(**tensors):
-    """Raise ValueError unless every tensor is a contiguous float32 one."""
-    for name, x in tensors.items():
-        if x.dtype != torch.float32:
-            raise ValueError(f"the CUDA Jacobi kernels are float32 only; "
-                             f"{name} is {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _check_on_card(**tensors):
-    """Raise ValueError unless every tensor lies on one CUDA device."""
-    first = next(iter(tensors.values())).device
-    for name, x in tensors.items():
-        if x.device.type != "cuda" or x.device != first:
-            raise ValueError(f"{name} must lie on one CUDA device, got "
-                             f"{x.device}")
-
-
-def _check_sizes(n, in_spin, out_spin):
-    if not MIN_N <= n <= MAX_N:
-        raise ValueError(f"the kernels are built for n in {MIN_N}..{MAX_N}, "
-                         f"got n={n}")
-    if not (0 <= in_spin < n and 0 <= out_spin < n):
-        raise ValueError(f"spins ({in_spin}, {out_spin}) out of range for "
-                         f"n={n}")
+    _KERNELS[name](tensors[0].device, *(x.data_ptr() for x in tensors), n,
+                   in_spin, out_spin, sweeps, EPS, b)
 
 
 def _check(ar, ai, t, in_spin, out_spin):
@@ -165,14 +104,14 @@ def _check(ar, ai, t, in_spin, out_spin):
     (besides the device): a dtype other than float32, a non-contiguous
     tensor, shapes other than ar, ai (n, n, B) and t (B,), n outside
     MIN_N..MAX_N, a spin outside 0..n-1."""
-    _check_tensors(ar=ar, ai=ai, t=t)
+    build.check_layout(ar=ar, ai=ai, t=t)
     n = ar.shape[0]
     b = ar.shape[-1]
     if ar.shape != (n, n, b) or ai.shape != ar.shape or t.shape != (b,):
         raise ValueError(f"expected ar, ai (n, n, B) and t (B,), got "
                          f"{tuple(ar.shape)}, {tuple(ai.shape)}, "
                          f"{tuple(t.shape)}")
-    _check_sizes(n, in_spin, out_spin)
+    build.check_n(n, in_spin, out_spin)
 
 
 def fidelity_herm_cuda(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
@@ -181,8 +120,7 @@ def fidelity_herm_cuda(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
     """Launch the Hermitian kernel: ar/ai (n, n, B), t (B,), contiguous
     float32 on one CUDA device -> fid (B,) on the current stream, not
     synchronised."""
-    global LAUNCHES
-    _check_on_card(ar=ar, ai=ai, t=t)
+    build.check_device(ar=ar, ai=ai, t=t)
     _check(ar, ai, t, in_spin, out_spin)
     n, b = ar.shape[0], ar.shape[-1]
     fid = torch.empty(b, dtype=torch.float32, device=ar.device)
@@ -190,7 +128,6 @@ def fidelity_herm_cuda(ar: torch.Tensor, ai: torch.Tensor, t: torch.Tensor,
         return fid
     _launch("herm_jacobi_fidelity", (ar, ai, t, fid), n, in_spin, out_spin,
             sweeps, b)
-    LAUNCHES += 1
     return fid
 
 
@@ -222,18 +159,17 @@ def transfer_amp_sym_kernel(kernel: str, a: torch.Tensor, t: torch.Tensor,
     its lower triangle and diagonal are read), t (B,), contiguous float32
     on one CUDA device -> (phr, phi), each (B,), on the current stream, not
     synchronised."""
-    _check_on_card(a=a, t=t)
-    _check_tensors(a=a, t=t)
+    build.check_device(a=a, t=t)
+    build.check_layout(a=a, t=t)
     n, b = a.shape[0], a.shape[-1]
     if a.shape != (n, n, b) or t.shape != (b,):
         raise ValueError(f"expected a (n, n, B) and t (B,), got "
                          f"{tuple(a.shape)}, {tuple(t.shape)}")
-    _check_sizes(n, in_spin, out_spin)
+    build.check_n(n, in_spin, out_spin)
     _check_route(kernel, ("sym_jacobi_amp", "sym_jacobi_amp_group"), n)
     amp = torch.empty((2, b), dtype=torch.float32, device=a.device)
     if b:
         _launch(kernel, (a, t, amp), n, in_spin, out_spin, sweeps, b)
-        globals()[_COUNTER[kernel]] += 1
     return amp[0], amp[1]
 
 
@@ -254,19 +190,18 @@ def infidelity_and_gradient_sym_kernel(kernel: str, h0: torch.Tensor,
     "sym_jacobi_grad_group") whatever the batch: h0 (n, n) symmetric,
     xs (B, n+1), contiguous float32 on one CUDA device -> (err (B,),
     grad (B, n+1)) on the current stream, not synchronised."""
-    _check_on_card(h0=h0, xs=xs)
-    _check_tensors(h0=h0, xs=xs)
+    build.check_device(h0=h0, xs=xs)
+    build.check_layout(h0=h0, xs=xs)
     n, b = h0.shape[-1], xs.shape[0]
     if h0.shape != (n, n) or xs.shape != (b, n + 1):
         raise ValueError(f"expected h0 (n, n) and xs (B, n+1), got "
                          f"{tuple(h0.shape)}, {tuple(xs.shape)}")
-    _check_sizes(n, in_spin, out_spin)
+    build.check_n(n, in_spin, out_spin)
     _check_route(kernel, ("sym_jacobi_grad", "sym_jacobi_grad_group"), n)
     err = torch.empty(b, dtype=torch.float32, device=xs.device)
     grad = torch.empty((b, n + 1), dtype=torch.float32, device=xs.device)
     if b:
         _launch(kernel, (h0, xs, err, grad), n, in_spin, out_spin, sweeps, b)
-        globals()[_COUNTER[kernel]] += 1
     return err, grad
 
 
@@ -290,11 +225,22 @@ def launch_floor(device) -> None:
         raise ValueError(f"launch_floor needs a CUDA device, got {dev}")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry("launch_floor")(None, None, None, 0, 0, 0, 0, 0.0, 0,
-                                 dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"launch_floor failed: CUDA error {err}")
+    _KERNELS["launch_floor"](dev, None, None, None, 0, 0, 0, 0, 0.0, 0)
+
+
+def _angles(name: str, x: torch.Tensor, rows: int):
+    """Launch the probe ``name`` of csrc/angles_probe.cu on x (rows, B) ->
+    (exact (rows + 3, B), fast (rows + 4, B))."""
+    build.check_device(x=x)
+    build.check_layout(x=x)
+    if x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(f"expected x ({rows}, B), got {tuple(x.shape)}")
+    b = x.shape[1]
+    exact = torch.empty((rows + 3, b), dtype=torch.float32, device=x.device)
+    fast = torch.empty((rows + 4, b), dtype=torch.float32, device=x.device)
+    if b:
+        _launch(name, (x, exact, fast), 0, 0, 0, 0, b)
+    return exact, fast
 
 
 def angles_probe(x: torch.Tensor):
@@ -305,16 +251,7 @@ def angles_probe(x: torch.Tensor):
     paths; fast's last row flags where the fast paths' operands are in the
     ranges they are written for (1 the angles, 2 the division, 4 the square
     root).  A check of the kernels' arithmetic; no path calls it."""
-    _check_on_card(x=x)
-    _check_tensors(x=x)
-    if x.dim() != 2 or x.shape[0] != 3:
-        raise ValueError(f"expected x (3, B), got {tuple(x.shape)}")
-    b = x.shape[1]
-    exact = torch.empty((6, b), dtype=torch.float32, device=x.device)
-    fast = torch.empty((7, b), dtype=torch.float32, device=x.device)
-    if b:
-        _launch("angles_probe", (x, exact, fast), 0, 0, 0, 0, b)
-    return exact, fast
+    return _angles("angles_probe", x, 3)
 
 
 def herm_angles_probe(x: torch.Tensor):
@@ -325,16 +262,7 @@ def herm_angles_probe(x: torch.Tensor):
     fast paths (herm_angles_fast) of the Hermitian kernel; fast's last row
     is 1 where the fast paths report their operands in range.  A check of
     the kernel's arithmetic; no path calls it."""
-    _check_on_card(x=x)
-    _check_tensors(x=x)
-    if x.dim() != 2 or x.shape[0] != 4:
-        raise ValueError(f"expected x (4, B), got {tuple(x.shape)}")
-    b = x.shape[1]
-    exact = torch.empty((7, b), dtype=torch.float32, device=x.device)
-    fast = torch.empty((8, b), dtype=torch.float32, device=x.device)
-    if b:
-        _launch("herm_angles_probe", (x, exact, fast), 0, 0, 0, 0, b)
-    return exact, fast
+    return _angles("herm_angles_probe", x, 4)
 
 
 def transfer_amp_sym(a: torch.Tensor, t: torch.Tensor, in_spin: int,

@@ -17,26 +17,20 @@ sharded sweep draws what the whole sweep draws there).
 ctypes): one thread an element, the same threefry words and the same
 float32 operations, each rounded on its own, so the kernel's matrices are
 the plain version's on the card bit for bit.  A CUDA float64 tensor raises
-``ValueError``, as kernel 1 does.  There is no fallback.  ``LAUNCHES``
-counts the kernel's launches.
+``ValueError``, as kernel 1 does.  There is no fallback.
+``build.LAUNCHES["mc_draw_lanes"]`` counts the kernel's launches.
 
 ops/prng.py and ops/noise.py stay the plain version of every other draw.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional
 
 import torch
 
-from code_robchar_tpu_torch.ops import cuda_jacobi, noise, prng
+from code_robchar_tpu_torch.ops import noise, prng
 from code_robchar_tpu_torch.utils import build
-
-#: launches of mc_draw_lanes in this process (never incremented by the CPU
-#: path)
-LAUNCHES = 0
 
 
 def lattice_ids(start: int, count: int, bootreps: int, num_c: int,
@@ -111,37 +105,17 @@ def draw_lanes_plain(h0r, ctrl, noises, key, start: int, count: int,
 
 def _check_kernel(h0r, ctrl, noises, key):
     """Raise ValueError for what the kernel does not take, on inputs that
-    passed ``_check`` (one dtype, one device): a dtype other than float32,
-    a non-contiguous input, n outside cuda_jacobi.MIN_N..MAX_N, tensors off
-    the card."""
-    if h0r.dtype != torch.float32:
-        raise ValueError(f"the draw kernel is float32 only, got "
-                         f"{h0r.dtype}")
-    for name, x in (("h0r", h0r), ("ctrl", ctrl), ("noises", noises),
-                    ("key", key)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    n = h0r.shape[0]
-    if not cuda_jacobi.MIN_N <= n <= cuda_jacobi.MAX_N:
-        raise ValueError(f"the draw kernel is built for n in "
-                         f"{cuda_jacobi.MIN_N}..{cuda_jacobi.MAX_N}, got "
-                         f"n={n}")
-    if h0r.device.type != "cuda":
-        raise ValueError(f"the draw kernel takes tensors on one CUDA "
-                         f"device, got {h0r.device}")
+    passed ``_check``: the shared checks of utils/build.py."""
+    build.check_layout({"key": torch.int64}, h0r=h0r, ctrl=ctrl,
+                       noises=noises, key=key)
+    build.check_n(h0r.shape[0])
+    build.check_device(h0r=h0r)
 
 
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-
-
-@functools.cache
-def _entry():
-    fn = build.load().mc_draw_lanes
-    # 7 pointers; start, count, bootreps, num_c, c_offset, c_global; n,
-    # complex_offdiag, device; stream
-    fn.argtypes = [_P] * 7 + [_LL] * 6 + [_I] * 3 + [_P]
-    fn.restype = ctypes.c_int
-    return fn
+# 7 pointers; start, count, bootreps, num_c, c_offset, c_global; n,
+# complex_offdiag
+_draw = build.kernel("mc_draw_lanes", *(build.P,) * 7, *(build.LL,) * 6,
+                     build.I, build.I)
 
 
 def draw_lanes_cuda(h0r, ctrl, noises, key, start: int, count: int,
@@ -150,7 +124,6 @@ def draw_lanes_cuda(h0r, ctrl, noises, key, start: int, count: int,
     """Launch csrc/mc_draw_lanes.cu: float32 h0r, ctrl, noises and the
     int64 key, contiguous, on one CUDA device, n in 2..10 -> (ar, ai, t) on
     the current stream, not synchronised."""
-    global LAUNCHES
     c_global = ctrl.shape[0] if c_global is None else c_global
     _check(h0r, ctrl, noises, key, start, count, bootreps, c_offset,
            c_global)
@@ -162,15 +135,10 @@ def draw_lanes_cuda(h0r, ctrl, noises, key, start: int, count: int,
     t = torch.empty(count, dtype=torch.float32, device=dev)
     if count == 0:
         return ar, ai, t
-    err = _entry()(key.data_ptr(), h0r.data_ptr(), ctrl.data_ptr(),
-                   noises.data_ptr(), ar.data_ptr(), ai.data_ptr(),
-                   t.data_ptr(), start, count, bootreps, ctrl.shape[0],
-                   c_offset, c_global, n, int(bool(complex_offdiag)),
-                   dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mc_draw_lanes launch failed: CUDA error {err} "
-                           f"(n={n}, count={count})")
-    LAUNCHES += 1
+    _draw(dev, key.data_ptr(), h0r.data_ptr(), ctrl.data_ptr(),
+          noises.data_ptr(), ar.data_ptr(), ai.data_ptr(), t.data_ptr(),
+          start, count, bootreps, ctrl.shape[0], c_offset, c_global, n,
+          int(bool(complex_offdiag)))
     return ar, ai, t
 
 

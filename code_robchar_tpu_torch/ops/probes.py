@@ -14,23 +14,17 @@ Each multiply and each add is rounded on its own, on the card (``__fmul_rn``,
 kernels are bit-equal to the plain versions except for ``tanhf`` against
 ``torch.tanh``.  A CPU tensor takes the plain version; a CUDA float32 tensor
 launches the kernel (built by utils/build.py on first use) or raises.  There
-is no fallback.  ``ALU_LAUNCHES`` and ``TANH_LAUNCHES`` count the kernels'
-launches.  The probe path that times them is perf/probes.py.
+is no fallback.  ``build.LAUNCHES`` counts the kernels' launches under
+their C entries' names.  The probe path that times them is perf/probes.py.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from code_robchar_tpu_torch.utils import build
 
-#: launches in this process of csrc/alu_probe.cu and csrc/tanh_probe.cu
-ALU_LAUNCHES = 0
-TANH_LAUNCHES = 0
 #: the stream counts alu_probe is instantiated for
 ALU_STREAMS = (1, 4, 8)
 #: the ops of tanh_probe, in the kernel's numbering
@@ -46,28 +40,10 @@ _DEN = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
 _CLAMP = 7.99881172180175781
 
 
-@functools.cache
-def _entry(name: str):
-    fn = getattr(build.load(), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, x: torch.Tensor, out: torch.Tensor, mode: int,
-            k: int, count: int) -> None:
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{name} takes a contiguous float32 tensor, got "
-                         f"{x.dtype}")
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry(name)(x.data_ptr(), out.data_ptr(), mode, k, count,
-                       x.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+# each: x, out; the mode (streams, op), K, the element count
+_alu = build.kernel("alu_probe", build.P, build.P, build.I, build.I, build.LL)
+_tanh = build.kernel("tanh_probe", build.P, build.P, build.I, build.I,
+                     build.LL)
 
 
 def _check_alu(x: torch.Tensor, streams: int, k: int) -> None:
@@ -97,15 +73,15 @@ def alu_probe_plain(x: torch.Tensor, streams: int, k: int) -> torch.Tensor:
 def alu_probe(x: torch.Tensor, streams: int, k: int) -> torch.Tensor:
     """x (rows, B) float32 -> (1, B): the plain version for a CPU tensor,
     csrc/alu_probe.cu for a CUDA one."""
-    global ALU_LAUNCHES
     if x.device.type == "cpu":
         return alu_probe_plain(x, streams, k)
     _check_alu(x, streams, k)
+    build.check_layout(x=x)
+    build.check_device(x=x)
     b = x.shape[1]
     out = torch.empty((1, b), dtype=torch.float32, device=x.device)
     if b:
-        _launch("alu_probe", x, out, streams, k, b)
-        ALU_LAUNCHES += 1
+        _alu(x.device, x.data_ptr(), out.data_ptr(), streams, k, b)
     return out
 
 
@@ -143,14 +119,14 @@ def tanh_probe_plain(x: torch.Tensor, op: str, k: int) -> torch.Tensor:
 def tanh_probe(x: torch.Tensor, op: str, k: int) -> torch.Tensor:
     """x float32 of any shape -> the same shape: the plain version for a
     CPU tensor, csrc/tanh_probe.cu for a CUDA one."""
-    global TANH_LAUNCHES
     mode = _op_index(op)
     if x.device.type == "cpu":
         return tanh_probe_plain(x, op, k)
+    build.check_layout(x=x)
+    build.check_device(x=x)
     out = torch.empty_like(x)
     if x.numel():
-        _launch("tanh_probe", x, out, mode, k, x.numel())
-        TANH_LAUNCHES += 1
+        _tanh(x.device, x.data_ptr(), out.data_ptr(), mode, k, x.numel())
     return out
 
 

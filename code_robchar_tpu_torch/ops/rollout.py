@@ -14,8 +14,9 @@ Each step, per agent:
 vectorised over agents) and CUDA float32 tensors to the hand-written kernel
 ``csrc/actor_env_rollout.cu`` (at the PPO path's width ``REG_HIDDEN`` its
 register-resident kernel, at other widths its generic one); CUDA float64
-raises ``ValueError``.  There is no fallback.  ``LAUNCHES_REG`` and
-``LAUNCHES`` count the two kernels' launches.
+raises ``ValueError``.  There is no fallback.  ``build.LAUNCHES`` counts
+the two kernels' launches under their C entries' names,
+``actor_env_rollout_reg`` and ``actor_env_rollout``.
 
 Layout (the port's own; no sublane padding): the actor's three Dense layers
 folded with their bias as the last input row, agent-major,
@@ -34,8 +35,6 @@ the XLA scan's.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,17 +42,11 @@ import torch
 from code_robchar_tpu_torch.ops import cuda_jacobi, realform
 from code_robchar_tpu_torch.utils import build
 
-#: launches of the generic kernel of csrc/actor_env_rollout.cu
-#: (``actor_env_rollout_kernel``, W2 in shared memory: every width but
-#: ``REG_HIDDEN``) in this process; never incremented by the CPU path
-LAUNCHES = 0
-#: launches of the kernel of the PPO path's width
-#: (``actor_env_rollout_reg_kernel``, each thread's column of W2 in
-#: registers), likewise
-LAUNCHES_REG = 0
-#: the hidden width that takes ``actor_env_rollout_reg_kernel``
-#: (``kRegHidden`` in csrc/actor_env_rollout.cu: the PPO path's (100, 100)
-#: actor)
+#: the hidden width that takes ``actor_env_rollout_reg_kernel`` (each
+#: thread's column of W2 in registers; ``kRegHidden`` in
+#: csrc/actor_env_rollout.cu: the PPO path's (100, 100) actor); every
+#: other width takes the generic ``actor_env_rollout_kernel`` (W2 in shared
+#: memory)
 REG_HIDDEN = 100
 
 
@@ -193,17 +186,11 @@ def actor_env_rollout_plain(w1, w2, w3, log_std, h0, action, tstep, ep_len,
                       next_t=t, next_ep=ep.to(torch.int32))
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-@functools.cache
-def _entry(name: str):
-    fn = getattr(build.load(), name)
-    # 19 pointers; n, h, in_spin, out_spin, sweeps; eps, bmax, maxtime;
-    # max_ep_len, ham_noisy, T, A, device; stream
-    fn.argtypes = ([_P] * 19 + [_I] * 5 + [_F] * 3 + [_I] * 5 + [_P])
-    fn.restype = ctypes.c_int
-    return fn
+# 19 pointers; n, h, in_spin, out_spin, sweeps; eps, bmax, maxtime;
+# max_ep_len, ham_noisy, T, A
+_ARGS = (build.P,) * 19 + (build.I,) * 5 + (build.F,) * 3 + (build.I,) * 4
+_ENTRIES = {True: build.kernel("actor_env_rollout_reg", *_ARGS),
+            False: build.kernel("actor_env_rollout", *_ARGS)}
 
 
 def actor_env_rollout_cuda(w1, w2, w3, log_std, h0, action, tstep, ep_len,
@@ -213,22 +200,12 @@ def actor_env_rollout_cuda(w1, w2, w3, log_std, h0, action, tstep, ep_len,
     """Launch the kernel of width ``w2.shape[-1]`` on the current stream
     (not synchronised): float32 tensors on one CUDA device, ep_len int32,
     shapes in the module docstring."""
-    global LAUNCHES, LAUNCHES_REG
-    floats = dict(w1=w1, w2=w2, w3=w3, log_std=log_std, h0=h0,
-                  action=action, tstep=tstep, eps=eps)
+    tensors = dict(w1=w1, w2=w2, w3=w3, log_std=log_std, h0=h0,
+                   action=action, tstep=tstep, eps=eps, ep_len=ep_len)
     if ham_noisy:
-        floats.update(zdiag=zdiag, znn=znn)
-    cuda_jacobi._check_on_card(ep_len=ep_len, **floats)
-    for name, x in floats.items():
-        if x.dtype != torch.float32:
-            raise ValueError(f"the rollout kernel is float32 only; {name} is "
-                             f"{x.dtype}")
-    if ep_len.dtype != torch.int32:
-        raise ValueError(f"ep_len must be int32, got {ep_len.dtype}")
-    tensors = dict(floats, ep_len=ep_len)
-    for name, x in tensors.items():
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        tensors.update(zdiag=zdiag, znn=znn)
+    build.check_device(**tensors)
+    build.check_layout({"ep_len": torch.int32}, **tensors)
     n, (t_len, d, a_cnt) = h0.shape[0], eps.shape
     hid = w2.shape[-1]
     shapes = dict(w1=(a_cnt, d + 1, hid), w2=(a_cnt, hid + 1, hid),
@@ -241,7 +218,7 @@ def actor_env_rollout_cuda(w1, w2, w3, log_std, h0, action, tstep, ep_len,
         if x is not None and tuple(x.shape) != want:
             raise ValueError(f"{name}: expected shape {want}, got "
                              f"{tuple(x.shape)}")
-    cuda_jacobi._check_sizes(n, in_spin, out_spin)
+    build.check_n(n, in_spin, out_spin)
     if hid < 1 or smem_bytes(n, hid) > build.SMEM_PER_BLOCK:
         raise ValueError(f"hidden width {hid}: the weights do not fit in "
                          f"one block's shared memory "
@@ -262,19 +239,10 @@ def actor_env_rollout_cuda(w1, w2, w3, log_std, h0, action, tstep, ep_len,
         return out
     ptrs = [w1, w2, w3, log_std, h0, action, tstep, ep_len, eps,
             zdiag if ham_noisy else None, znn if ham_noisy else None, *out]
-    reg = hid == REG_HIDDEN
-    err = _entry("actor_env_rollout_reg" if reg else "actor_env_rollout")(
-        *(None if p is None else p.data_ptr() for p in ptrs),
+    _ENTRIES[hid == REG_HIDDEN](
+        dev, *(None if p is None else p.data_ptr() for p in ptrs),
         n, hid, in_spin, out_spin, sweeps, cuda_jacobi.EPS, float(bmax),
-        float(maxtime), int(max_ep_len), int(bool(ham_noisy)), t_len, a_cnt,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"actor_env_rollout launch failed: CUDA error "
-                           f"{err} (n={n}, h={hid}, T={t_len}, A={a_cnt})")
-    if reg:
-        LAUNCHES_REG += 1
-    else:
-        LAUNCHES += 1
+        float(maxtime), int(max_ep_len), int(bool(ham_noisy)), t_len, a_cnt)
     return out
 
 

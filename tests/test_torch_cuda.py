@@ -13,6 +13,7 @@ from code_robchar_tpu_torch.mc import engine
 from code_robchar_tpu_torch.models import LBFGS, NMPlus
 from code_robchar_tpu_torch.ops import (chain, cuda_jacobi, mc_draws, noise,
                                        prng, realform)
+from code_robchar_tpu_torch.utils import build
 
 pytestmark = pytest.mark.cuda
 
@@ -38,25 +39,25 @@ def _batch(n, b, dev, seed=0):
 @pytest.mark.parametrize("n", range(2, 11))
 def test_kernel_matches_plain_version(dev, n):
     ar, ai, t = _batch(n, 1000 + n, dev, seed=n)    # ragged tail
-    before = cuda_jacobi.LAUNCHES
+    before = build.LAUNCHES["herm_jacobi_fidelity"]
     got = cuda_jacobi.fidelity_herm(ar, ai, t, 0, n - 1)
     want = realform.fidelity_herm_lanes(ar, ai, t, 0, n - 1)
     torch.cuda.synchronize()
-    assert cuda_jacobi.LAUNCHES == before + 1
+    assert build.LAUNCHES["herm_jacobi_fidelity"] == before + 1
     assert got.shape == t.shape and got.device == ar.device
     assert float((got - want).abs().max()) <= 3e-5
 
 
 def test_kernel_refuses_float64_and_odd_layouts(dev):
     ar, ai, t = _batch(5, 64, dev)
-    before = cuda_jacobi.LAUNCHES
+    before = build.LAUNCHES["herm_jacobi_fidelity"]
     with pytest.raises(ValueError, match="float32"):
         cuda_jacobi.fidelity_herm(ar.double(), ai.double(), t.double(), 0, 4)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_jacobi.fidelity_herm(ar.transpose(0, 1), ai, t, 0, 4)
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_jacobi.fidelity_herm(ar, ai, t.cpu(), 0, 4)
-    assert cuda_jacobi.LAUNCHES == before
+    assert build.LAUNCHES["herm_jacobi_fidelity"] == before
     assert cuda_jacobi.fidelity_herm(ar[..., :0].contiguous(),
                                      ai[..., :0].contiguous(), t[:0], 0,
                                      4).shape == (0,)
@@ -121,11 +122,11 @@ def test_draw_kernel_equals_torch_route_bitwise(dev, n, cx, case):
                                               c_glob, dev)
     route = noise.assemble_lanes(h0, ctrl[c_idx], noises[l_idx],
                                  prng.fold_in(key, gids), cx)
-    before = mc_draws.LAUNCHES
+    before = build.LAUNCHES["mc_draw_lanes"]
     got = mc_draws.draw_lanes(h0, ctrl, noises, key, start, count, 100, cx,
                               c_offset, c_global)
     torch.cuda.synchronize()
-    assert mc_draws.LAUNCHES == before + 1
+    assert build.LAUNCHES["mc_draw_lanes"] == before + 1
     for g, want in zip(got, route):
         assert g.device == want.device and g.shape == want.shape
         assert torch.equal(_bits(g), _bits(want))
@@ -140,14 +141,14 @@ def test_characterise_on_card_equals_the_torch_route(dev, monkeypatch):
     key = prng.key(2**33 + 21, device=dev)
     kw = dict(alpha=0.05, complex_offdiag=True, chunk=4_000,
               return_fids=False, device=dev)
-    before = mc_draws.LAUNCHES
+    before = build.LAUNCHES["mc_draw_lanes"]
     got = engine.characterise(h0, ctrl, noises, key, 100, 0, 6, **kw)
     torch.cuda.synchronize()
     chunks = -(-11 * 300 // 40)           # 40 cells (4,000 elements) a chunk
-    assert mc_draws.LAUNCHES == before + chunks
+    assert build.LAUNCHES["mc_draw_lanes"] == before + chunks
     monkeypatch.setattr(mc_draws, "draw_lanes", mc_draws.draw_lanes_plain)
     want = engine.characterise(h0, ctrl, noises, key, 100, 0, 6, **kw)
-    assert mc_draws.LAUNCHES == before + chunks
+    assert build.LAUNCHES["mc_draw_lanes"] == before + chunks
     assert sorted(got) == sorted(want)
     for name in want:
         assert torch.equal(got[name], want[name]), name
@@ -156,7 +157,7 @@ def test_characterise_on_card_equals_the_torch_route(dev, monkeypatch):
 def test_draw_kernel_refuses_what_it_does_not_take(dev):
     h0, ctrl, noises = _draw_inputs(5, dev)
     key = prng.key(1, device=dev)
-    before = mc_draws.LAUNCHES
+    before = build.LAUNCHES["mc_draw_lanes"]
     args = (0, 100, 100)
     with pytest.raises(ValueError, match="float32"):
         mc_draws.draw_lanes(h0.double(), ctrl.double(), noises.double(), key,
@@ -168,10 +169,10 @@ def test_draw_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="device"):
         mc_draws.draw_lanes_cuda(h0.cpu(), ctrl.cpu(), noises.cpu(),
                                  key.cpu(), *args)
-    assert mc_draws.LAUNCHES == before
+    assert build.LAUNCHES["mc_draw_lanes"] == before
     ar, ai, t = mc_draws.draw_lanes(h0, ctrl, noises, key, 0, 0, 100)
     assert ar.shape == (5, 5, 0) and t.shape == (0,)
-    assert mc_draws.LAUNCHES == before
+    assert build.LAUNCHES["mc_draw_lanes"] == before
 
 
 def _sym_batch(n, b, dev, seed=0):
@@ -184,11 +185,15 @@ def _sym_batch(n, b, dev, seed=0):
                            (h0 + h0.T) / 2, xs))
 
 
+def _count(*names):
+    """The launches of the C entries ``names``, in that order."""
+    return tuple(build.LAUNCHES[name] for name in names)
+
+
 def _sym_launches():
     """(amplitude launches, gradient launches), both kernels of each."""
-    return (cuda_jacobi.SYM_AMP_LAUNCHES + cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
-            cuda_jacobi.SYM_GRAD_LAUNCHES
-            + cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES)
+    return (sum(_count("sym_jacobi_amp", "sym_jacobi_amp_group")),
+            sum(_count("sym_jacobi_grad", "sym_jacobi_grad_group")))
 
 
 @pytest.mark.parametrize("n", range(2, 11))
@@ -230,14 +235,12 @@ def test_group_kernels_match_plain_at_ragged_batches(dev, n):
     """The lane-group kernels at batches that end inside a warp, inside a
     group's warp share and on one matrix; every in / out pair of lanes is
     reached over the sizes."""
-    before = (cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
-              cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES)
+    before = _count("sym_jacobi_amp_group", "sym_jacobi_grad_group")
     for b in (1, 7, 33, 1000 + n):
         _hold_sym_kernels("sym_jacobi_amp_group", "sym_jacobi_grad_group", n,
                           b, dev)
-    assert (cuda_jacobi.SYM_AMP_GROUP_LAUNCHES,
-            cuda_jacobi.SYM_GRAD_GROUP_LAUNCHES) == (before[0] + 4,
-                                                     before[1] + 4)
+    assert _count("sym_jacobi_amp_group", "sym_jacobi_grad_group") == (
+        before[0] + 4, before[1] + 4)
 
 
 @pytest.mark.parametrize("n", range(2, 11))
@@ -271,11 +274,11 @@ def test_dispatch_takes_the_routed_kernel_on_both_sides(dev, kind):
     n = 7
     edge = cuda_jacobi.AMP_GROUP_MAX_B if kind == "amp" \
         else cuda_jacobi.GRAD_GROUP_MAX_B
-    names = ("SYM_AMP_LAUNCHES", "SYM_AMP_GROUP_LAUNCHES") if kind == "amp" \
-        else ("SYM_GRAD_LAUNCHES", "SYM_GRAD_GROUP_LAUNCHES")
+    names = ("sym_jacobi_amp", "sym_jacobi_amp_group") if kind == "amp" \
+        else ("sym_jacobi_grad", "sym_jacobi_grad_group")
     for b, moved in ((edge, (0, 1)), (edge + 1, (1, 0))):
         a, t, h0, xs = _sym_batch(n, b, dev, seed=b % 1000)
-        before = [getattr(cuda_jacobi, x) for x in names]
+        before = _count(*names)
         if kind == "amp":
             got = cuda_jacobi.transfer_amp_sym(a, t, 0, n - 1)
             want = realform.transfer_amp_sym_lanes(a, t, 0, n - 1)
@@ -285,7 +288,7 @@ def test_dispatch_takes_the_routed_kernel_on_both_sides(dev, kind):
             want = realform.infidelity_and_gradient_sym_lanes(h0, xs, 0,
                                                               n - 1)
             bars = (2e-5, 1e-4)
-        after = [getattr(cuda_jacobi, x) for x in names]
+        after = _count(*names)
         assert tuple(y - x for x, y in zip(before, after)) == moved
         for g, w in zip(got, want):
             assert bool(((g - w).abs() <= bars[0] + bars[1] * w.abs()).all())
@@ -483,12 +486,12 @@ def test_rollout_kernel_matches_plain_version(dev, n, hid, ham_noisy):
     args = _rollout_case(n, hid, 70, 20, dev, seed=n)
     kw = dict(in_spin=0, out_spin=n - 1, sweeps=4, bmax=10.0, maxtime=30.0,
               max_ep_len=7, ham_noisy=ham_noisy)
-    before = (rollout.LAUNCHES_REG, rollout.LAUNCHES)
+    before = _count("actor_env_rollout_reg", "actor_env_rollout")
     got = rollout.actor_env_rollout(*args, **kw)
     want = rollout.actor_env_rollout_plain(*args, **kw)
     torch.cuda.synchronize()
     reg = int(hid == rollout.REG_HIDDEN)
-    assert (rollout.LAUNCHES_REG, rollout.LAUNCHES) == (
+    assert _count("actor_env_rollout_reg", "actor_env_rollout") == (
         before[0] + reg, before[1] + 1 - reg)
     for name in ("a", "fid", "obs2", "next_action", "next_t"):
         err = float((getattr(got, name) - getattr(want, name)).abs().max())
@@ -521,11 +524,11 @@ def test_critic_kernel_matches_plain_version(dev, hid, t_len, a_cnt, share):
     obs = torch.as_tensor(rng.normal(size=(a_cnt, t_len, d)), **f32)
     rets = torch.as_tensor(rng.normal(size=(a_cnt, t_len)), **f32)
     kw = dict(h=hid, iters=7, lr=1e-3)
-    before = critic.LAUNCHES
+    before = build.LAUNCHES["critic_train"]
     got = critic.critic_train_packed(theta, mu, nu, count, obs, rets, **kw)
     want = critic.critic_train_plain(theta, mu, nu, count, obs, rets, **kw)
     torch.cuda.synchronize()
-    assert critic.LAUNCHES == before + 1
+    assert build.LAUNCHES["critic_train"] == before + 1
     over = 0
     for g, w in zip(got[:3], want[:3]):
         over += int(((g - w).abs() > 2e-6 + 1e-5 * w.abs()).sum())
@@ -565,13 +568,13 @@ def test_critic_bf16_kernel_matches_plain_version(dev, hid, t_len, a_cnt):
         return over / sum(y.numel() for y in ys)
 
     args = _critic_bf16_case(hid, t_len, a_cnt, dev)
-    before = (critic.LAUNCHES, critic.LAUNCHES_BF16)
+    before = _count("critic_train", "critic_train_bf16")
     kw = dict(h=hid, lr=1e-3, fast_dot=True)
     got = critic.critic_train_packed(*args, iters=1, **kw)
     want = critic.critic_train_plain(*args, iters=1, **kw)
     torch.cuda.synchronize()
-    assert (critic.LAUNCHES, critic.LAUNCHES_BF16) == (before[0],
-                                                       before[1] + 1)
+    assert _count("critic_train", "critic_train_bf16") == (before[0],
+                                                          before[1] + 1)
     assert float((got[1] - want[1]).abs().max()) <= \
         2e-4 * float(want[1].abs().max())
     assert torch.equal(got[3], args[3] + 1)
@@ -605,7 +608,7 @@ def test_critic_kernels_copy_state_at_zero_iters(dev, fast_dot):
 def test_critic_bf16_kernel_refuses_what_it_does_not_take(dev):
     from code_robchar_tpu_torch.ops import critic
 
-    before = critic.LAUNCHES_BF16
+    before = build.LAUNCHES["critic_train_bf16"]
     kw = dict(iters=1, lr=1e-3, fast_dot=True)
     with pytest.raises(ValueError, match="float32"):
         critic.critic_train_packed(
@@ -620,7 +623,7 @@ def test_critic_bf16_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="at most 15 inputs"):
         critic.critic_train_packed(*_critic_bf16_case(16, 8, 1, dev, d=16),
                                    h=16, **kw)
-    assert critic.LAUNCHES_BF16 == before
+    assert build.LAUNCHES["critic_train_bf16"] == before
     # the widest critic the kernel takes at 8 inputs
     args = _critic_bf16_case(106, 40, 2, dev)
     got = critic.critic_train_packed(*args, h=106, **kw)
@@ -635,7 +638,8 @@ def test_ppo_kernels_refuse_float64(dev):
 
     args = [x.double() if x.is_floating_point() else x
             for x in _rollout_case(4, 16, 8, 3, dev)]
-    before = (rollout.LAUNCHES, rollout.LAUNCHES_REG, critic.LAUNCHES)
+    names = ("actor_env_rollout", "actor_env_rollout_reg", "critic_train")
+    before = _count(*names)
     with pytest.raises(ValueError, match="float32"):
         rollout.actor_env_rollout(*args, in_spin=0, out_spin=3, sweeps=4,
                                   bmax=10.0, maxtime=30.0, max_ep_len=5,
@@ -648,7 +652,7 @@ def test_ppo_kernels_refuse_float64(dev):
             torch.zeros((2, 3, 4), dtype=torch.float64, device=dev),
             torch.zeros((2, 3), dtype=torch.float64, device=dev), h=16,
             iters=1, lr=1e-3)
-    assert (rollout.LAUNCHES, rollout.LAUNCHES_REG, critic.LAUNCHES) == before
+    assert _count(*names) == before
 
 
 def test_ppo_epoch_on_card_matches_cpu(dev):
@@ -658,7 +662,6 @@ def test_ppo_epoch_on_card_matches_cpu(dev):
     and the float32 one not at all, and the rollout kernel of the actor's
     width (100) once and the generic one not at all; on the CPU none."""
     from code_robchar_tpu_torch.models import PPO_en
-    from code_robchar_tpu_torch.ops import critic, rollout
 
     def one(device):
         p = PPO_en(4, 0, 2, testing=True, num_agents=16, seed=3,
@@ -667,8 +670,8 @@ def test_ppo_epoch_on_card_matches_cpu(dev):
         return fn(p._init_agent(prng.split(prng.key(1), 16)))
 
     def counts():
-        return (rollout.LAUNCHES_REG, rollout.LAUNCHES, critic.LAUNCHES_BF16,
-                critic.LAUNCHES)
+        return _count("actor_env_rollout_reg", "actor_env_rollout",
+                      "critic_train_bf16", "critic_train")
 
     before = counts()
     (_, got), (_, want) = one(dev), one("cpu")
@@ -682,11 +685,11 @@ def test_alu_probe_kernel_equals_plain_version(dev, streams):
     from code_robchar_tpu_torch.ops import probes
 
     x = torch.as_tensor(probes.reference_alu_input(5000), device=dev)
-    before = probes.ALU_LAUNCHES
+    before = build.LAUNCHES["alu_probe"]
     got = probes.alu_probe(x, streams, 256)      # ragged last block
     want = probes.alu_probe_plain(x, streams, 256)
     torch.cuda.synchronize()
-    assert probes.ALU_LAUNCHES == before + 1
+    assert build.LAUNCHES["alu_probe"] == before + 1
     assert torch.equal(got, want)
 
 
@@ -695,11 +698,11 @@ def test_tanh_probe_kernel_equals_plain_version(dev, op):
     from code_robchar_tpu_torch.ops import probes
 
     x = prng.normal(prng.key(0), (37, 100), torch.float32).to(dev)
-    before = probes.TANH_LAUNCHES
+    before = build.LAUNCHES["tanh_probe"]
     got = probes.tanh_probe(x, op, 300)
     want = probes.tanh_probe_plain(x, op, 300)
     torch.cuda.synchronize()
-    assert probes.TANH_LAUNCHES == before + 1 and got.shape == x.shape
+    assert build.LAUNCHES["tanh_probe"] == before + 1 and got.shape == x.shape
     if op == "tanh":        # tanhf against torch.tanh
         assert float((got - want).abs().max()) <= 300 * 2.0 ** -24
     else:
@@ -714,7 +717,7 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
         probes.alu_probe(x.double(), 4, 8)
     with pytest.raises(ValueError):
         probes.alu_probe(x, 2, 8)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="contiguous"):
         probes.tanh_probe(x.t(), "mul", 8)
 
 
@@ -744,21 +747,21 @@ def test_env_on_card_takes_the_amplitude_kernel(dev):
     card = env.Environment(5, 0, 4, device=dev, **kw)
     cpu = env.Environment(5, 0, 4, device="cpu", **kw)
     action = np.diag(np.random.default_rng(0).uniform(-3, 3, 5))
-    before = cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
+    before = build.LAUNCHES["sym_jacobi_amp_group"]
     got = card.true_fid(action, 7.5)
-    assert cuda_jacobi.SYM_AMP_GROUP_LAUNCHES == before + 1
+    assert build.LAUNCHES["sym_jacobi_amp_group"] == before + 1
     assert abs(got - cpu.true_fid(action, 7.5)) <= 3e-5
     card.timestep = cpu.timestep = 2.0
-    before = cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
+    before = build.LAUNCHES["sym_jacobi_amp_group"]
     (_, r_card, _), (_, r_cpu, _) = card.step(action), cpu.step(action)
     # the noisy reward and the true fidelity: two launches
-    assert cuda_jacobi.SYM_AMP_GROUP_LAUNCHES == before + 2
+    assert build.LAUNCHES["sym_jacobi_amp_group"] == before + 2
     assert abs(r_card - r_cpu) <= 3e-5 and abs(card.tf - cpu.tf) <= 3e-5
     fixed = env.Environment(4, 0, 3, device=dev, use_fixed_ham=True,
                             opt_train_size=6, dtype=torch.float32)
-    before = cuda_jacobi.SYM_AMP_GROUP_LAUNCHES
+    before = build.LAUNCHES["sym_jacobi_amp_group"]
     reward = fixed.fidelity()
-    assert cuda_jacobi.SYM_AMP_GROUP_LAUNCHES == before + 2
+    assert build.LAUNCHES["sym_jacobi_amp_group"] == before + 2
     assert 0.0 <= reward <= 1.0 + 1e-5
 
 

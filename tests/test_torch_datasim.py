@@ -20,7 +20,8 @@ import torch
 from code_robchar_tpu.mc import datasim as jdatasim
 from code_robchar_tpu.mc import engine as jengine
 from code_robchar_tpu_torch.mc import datasim, engine
-from code_robchar_tpu_torch.ops import chain, cuda_jacobi, prng
+from code_robchar_tpu_torch.ops import chain, prng
+from code_robchar_tpu_torch.utils import build
 
 N, IN, OUT, C, B = 4, 0, 2, 8, 16
 NOISES = np.linspace(0, 0.1, 3)
@@ -183,10 +184,10 @@ def test_engine_routes_agree():
         _close_dicts({k: v.numpy() for k, v in ma.items()},
                      {k: v.numpy() for k, v in mb.items()}, 1e-10)
     # the complex route takes no Jacobi kernel on any device
-    cuda_jacobi.LAUNCHES = 0
+    before = build.LAUNCHES.copy()
     engine.mc_metric_sweep(h0, xs, NOISES, prng.key(4), B, IN, OUT,
                            use_jacobi=False, **kw)
-    assert cuda_jacobi.LAUNCHES == 0
+    assert build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("fn", ["propagator", "transfer_fidelity",

@@ -5,6 +5,8 @@ mc_metric_sweep at f64 within 1e-10 on all 15 tensors; mc_fidelity_sweep
 at f32 within 3e-5 (the port's plain round-robin order against JAX's
 cyclic XLA path, both at the f32 floor)."""
 
+from collections import Counter
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,7 +15,8 @@ import torch
 
 from code_robchar_tpu.mc import engine as jengine
 from code_robchar_tpu_torch.mc import engine
-from code_robchar_tpu_torch.ops import cuda_jacobi, prng
+from code_robchar_tpu_torch.ops import prng
+from code_robchar_tpu_torch.utils import build
 
 N, C, B = 4, 5, 16
 NOISES = (0.0, 0.05, 0.1)
@@ -42,7 +45,7 @@ def lattice():
 
 
 def test_metric_sweep_f64_matches_jax(lattice, monkeypatch):
-    monkeypatch.setattr(cuda_jacobi, "LAUNCHES", 0)
+    monkeypatch.setattr(build, "LAUNCHES", Counter())
     h0, ctrl, noises = lattice
     want = jengine.mc_metric_sweep(jnp.asarray(h0), jnp.asarray(ctrl),
                                    jnp.asarray(noises), jax.random.key(7),
@@ -54,7 +57,7 @@ def test_metric_sweep_f64_matches_jax(lattice, monkeypatch):
         assert got[k].shape == (3, C) and got[k].dtype == torch.float64
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=0, atol=1e-10, err_msg=k)
-    assert cuda_jacobi.LAUNCHES == 0        # the CPU path is the plain one
+    assert not build.LAUNCHES           # the CPU path is the plain one
 
 
 def test_fidelity_sweep_f32_matches_jax(lattice):

@@ -159,8 +159,10 @@ def test_rollout_constants_are_the_kernels():
     assert "__shared__ float s_part[W][kMaxSlots];" in src
     with open(rollout.__file__) as f:
         wrapper = f.read()
-    assert ('_entry("actor_env_rollout_reg" if reg else "actor_env_rollout")'
+    assert ('_ENTRIES = {True: build.kernel("actor_env_rollout_reg", *_ARGS),\n'
+            '            False: build.kernel("actor_env_rollout", *_ARGS)}'
             in wrapper)
+    assert "_ENTRIES[hid == REG_HIDDEN](" in wrapper
 
 
 @pytest.mark.parametrize("n", [2, 7, 10])

@@ -13,6 +13,7 @@ tools/profile_jacobi.py on the sources as they stand.
 import importlib.util
 import os
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from code_robchar_tpu_torch import config
 from code_robchar_tpu_torch.mc import engine
 from code_robchar_tpu_torch.models import LBFGS, NMPlus, PPO_en
 from code_robchar_tpu_torch.ops import chain, cuda_jacobi, prng, realform
+from code_robchar_tpu_torch.utils import build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "code_robchar_tpu_torch", "csrc")
@@ -128,8 +130,8 @@ def test_routes_at_their_boundaries():
                                     "sym_jacobi_grad_group"])
 def test_named_kernels_refuse_cpu_tensors_and_count_nothing(kernel,
                                                             monkeypatch):
-    counter = cuda_jacobi._COUNTER[kernel]
-    monkeypatch.setattr(cuda_jacobi, counter, 0)
+    monkeypatch.setattr(build, "LAUNCHES", Counter())
+    monkeypatch.setattr(build, "load", None)          # never reached
     with pytest.raises(ValueError, match="CUDA device"):
         if "amp" in kernel:
             cuda_jacobi.transfer_amp_sym_kernel(
@@ -137,7 +139,7 @@ def test_named_kernels_refuse_cpu_tensors_and_count_nothing(kernel,
         else:
             cuda_jacobi.infidelity_and_gradient_sym_kernel(
                 kernel, torch.zeros(4, 4), torch.zeros(8, 5), 0, 3)
-    assert getattr(cuda_jacobi, counter) == 0
+    assert not build.LAUNCHES
 
 
 def test_route_check_refuses_unknown_names_and_n2_groups():
@@ -152,12 +154,10 @@ def test_route_check_refuses_unknown_names_and_n2_groups():
         cuda_jacobi.launch_floor("cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_jacobi.angles_probe(torch.zeros(3, 8))
-    assert set(cuda_jacobi._COUNTER) <= set(cuda_jacobi._ARGTYPES)
 
 
 def test_dispatch_on_cpu_tensors_is_plain_and_counts_nothing(monkeypatch):
-    for name in cuda_jacobi._COUNTER.values():
-        monkeypatch.setattr(cuda_jacobi, name, 0)
+    monkeypatch.setattr(build, "LAUNCHES", Counter())
     rng = np.random.default_rng(3)
     n, b = 7, 12
     a = rng.normal(size=(n, n, b))
@@ -166,8 +166,7 @@ def test_dispatch_on_cpu_tensors_is_plain_and_counts_nothing(monkeypatch):
     got = cuda_jacobi.transfer_amp_sym(a, t, 0, n - 1)
     want = realform.transfer_amp_sym_lanes(a, t, 0, n - 1)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert all(getattr(cuda_jacobi, name) == 0
-               for name in cuda_jacobi._COUNTER.values())
+    assert not build.LAUNCHES
 
 
 @pytest.mark.parametrize("entry", ["resolver", "engine", "lbfgs", "nmplus",

@@ -6,13 +6,16 @@ route takes; and the engine's fused and unfused sweeps, which now draw
 through it.  The kernel route is held on the card in
 tests/test_torch_cuda.py."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
 
 from code_robchar_tpu_torch.mc import engine
-from code_robchar_tpu_torch.ops import chain, cuda_jacobi, mc_draws, noise
+from code_robchar_tpu_torch.ops import chain, mc_draws, noise
 from code_robchar_tpu_torch.ops import prng
+from code_robchar_tpu_torch.utils import build
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -147,12 +150,12 @@ def test_draws_refuse_what_no_route_takes(kind):
 def test_kernel_route_refuses_cpu_tensors(monkeypatch):
     """The kernel's wrapper refuses CPU tensors without building or
     launching anything."""
-    monkeypatch.setattr(mc_draws, "LAUNCHES", 0)
-    monkeypatch.setattr(mc_draws, "_entry", None)     # never reached
+    monkeypatch.setattr(build, "LAUNCHES", Counter())
+    monkeypatch.setattr(build, "load", None)          # never reached
     h0, ctrl, noises = _inputs(4, 2, 3, torch.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         mc_draws.draw_lanes_cuda(h0, ctrl, noises, prng.key(1), 0, 6, 5)
-    assert mc_draws.LAUNCHES == 0
+    assert not build.LAUNCHES
 
 
 @pytest.mark.parametrize("bad", ["float64", "ctrl_noncontiguous",
@@ -187,8 +190,7 @@ def test_metric_sweep_equals_metrics_of_the_fidelity_sweep(dtype, chunk,
                                                           monkeypatch):
     """The fused sweep still equals metric_tensors of the unfused one on
     the CPU, and the CPU route launches nothing."""
-    monkeypatch.setattr(mc_draws, "LAUNCHES", 0)
-    monkeypatch.setattr(cuda_jacobi, "LAUNCHES", 0)
+    monkeypatch.setattr(build, "LAUNCHES", Counter())
     n = 4
     h0 = chain.xx_hamiltonian_real(n, dtype=dtype)
     _, ctrl, noises = _inputs(n, 3, 5, dtype, seed=9)
@@ -202,7 +204,7 @@ def test_metric_sweep_equals_metrics_of_the_fidelity_sweep(dtype, chunk,
     for name in want:
         assert torch.allclose(fused[name], want[name], rtol=0,
                               atol=1e-12 if dtype == torch.float64 else 1e-6)
-    assert mc_draws.LAUNCHES == 0 and cuda_jacobi.LAUNCHES == 0
+    assert not build.LAUNCHES
 
 
 def test_fidelity_sweep_draws_each_chunk_once(monkeypatch):

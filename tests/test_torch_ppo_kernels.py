@@ -129,10 +129,10 @@ def test_rollout_plain_matches_pallas_interpret(t_len, ham_noisy,
     tree, h0, carry, streams = _rollout_inputs(64, t_len, seed=t_len)
     want = _jax_rollout(tree, h0, carry, streams, t_len, ham_noisy,
                         max_ep_len)
-    before = (rollout.LAUNCHES, rollout.LAUNCHES_REG)
+    before = build.LAUNCHES.copy()
     got = _port_rollout(tree, h0, carry, streams, ham_noisy, max_ep_len)
     # the CPU runs the plain one
-    assert (rollout.LAUNCHES, rollout.LAUNCHES_REG) == before
+    assert build.LAUNCHES == before
     _check(got, want, 64)
     if max_ep_len < t_len:
         assert got.timeout.any() and int(got.next_ep.max()) < max_ep_len
@@ -193,11 +193,11 @@ def test_critic_plain_matches_pallas_interpret():
         params, vf_opt, jnp.asarray(obs), jnp.asarray(rets), iters=iters,
         lr=lr, fast_dot=False, block=2, interpret=True)
     p = ac.params_from_jax(params, torch.float32)
-    before = critic.LAUNCHES
+    before = build.LAUNCHES.copy()
     got_p, got_opt = critic.critic_train(
         p, _port_opt(vf_opt, torch.float32), torch.as_tensor(obs),
         torch.as_tensor(rets), iters=iters, lr=lr)
-    assert critic.LAUNCHES == before
+    assert build.LAUNCHES == before
     want_pt = ac.params_from_jax(want_p, torch.float32)
     want_o = _port_opt(want_opt, torch.float32)
     for k in p:
@@ -312,7 +312,8 @@ def test_critic_pack_round_trip():
                                  fast_dot=False)
 
 
-def test_kernel_wrappers_refuse_cpu_tensors():
+def test_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
+    monkeypatch.setattr(build, "load", None)          # never reached
     args = [torch.zeros(1)] * 11
     with pytest.raises(ValueError, match="CUDA device"):
         rollout.actor_env_rollout_cuda(
@@ -525,7 +526,7 @@ def test_bf16_kernel_wrapper_refusals():
     case = list(map(torch.as_tensor, _packed_case(6)))
     with pytest.raises(ValueError, match="CUDA device"):
         critic.critic_train_cuda(*case, iters=1, lr=1e-3, **kw)
-    assert critic.LAUNCHES_BF16 == 0
+    assert build.LAUNCHES["critic_train_bf16"] == 0
     critic.check_critic_args(*case, **kw)
     with pytest.raises(ValueError, match="float32"):
         critic.check_critic_args(*(x.double() if x.is_floating_point() else x

@@ -37,6 +37,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from code_robchar_tpu_torch.ops import probes
+from code_robchar_tpu_torch.utils import build
 
 N, TILE, LANES = 7, 128, 256
 SHAPE = (16, 128)
@@ -214,6 +215,6 @@ def test_probe_wrappers_check_their_inputs():
         probes.alu_probe(x[:4], 4, 8)
     with pytest.raises(ValueError):
         probes.tanh_probe(x, "exp", 8)
-    assert probes.ALU_LAUNCHES == probes.TANH_LAUNCHES == 0
+    assert build.LAUNCHES["alu_probe"] == build.LAUNCHES["tanh_probe"] == 0
     assert probes.alu_ops(1 << 19, 4096) == 2.0 * (1 << 19) * 4096
     assert probes.tanh_ops(65536, "rational", 8192) == 65536 * 8192 * 24.0

@@ -7,6 +7,8 @@ tests/test_pallas.py), and the ring topology's exact degeneracies against
 an augmented-expm oracle (1e-10 at f64, 1e-4 at f32).
 """
 
+from collections import Counter
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ import torch
 from code_robchar_tpu.ops import pallas_jacobi as jpj
 from code_robchar_tpu.ops import realform as jrf
 from code_robchar_tpu_torch.ops import cuda_jacobi, realform
+from code_robchar_tpu_torch.utils import build
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -196,8 +199,7 @@ def test_gradient_at_ring_degeneracies(n):
 
 
 def test_cpu_dispatch_is_the_plain_roundrobin(rng, monkeypatch):
-    for name in ("SYM_AMP_LAUNCHES", "SYM_GRAD_LAUNCHES"):
-        monkeypatch.setattr(cuda_jacobi, name, 0)
+    monkeypatch.setattr(build, "LAUNCHES", Counter())
     a, t = (_t(x) for x in _sym_lanes(rng, 6, 32, np.float32))
     got = cuda_jacobi.transfer_amp_sym(a, t, 0, 5)
     want = realform.transfer_amp_sym_lanes(a, t, 0, 5)
@@ -208,8 +210,7 @@ def test_cpu_dispatch_is_the_plain_roundrobin(rng, monkeypatch):
     got = cuda_jacobi.infidelity_and_gradient_sym(h0, xs, 1, 4)
     want = realform.infidelity_and_gradient_sym_lanes(h0, xs, 1, 4)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert cuda_jacobi.SYM_AMP_LAUNCHES == 0
-    assert cuda_jacobi.SYM_GRAD_LAUNCHES == 0
+    assert not build.LAUNCHES
 
 
 def test_plain_versions_leave_inputs_untouched(rng):
@@ -224,31 +225,47 @@ def test_plain_versions_leave_inputs_untouched(rng):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
-    monkeypatch.setattr(cuda_jacobi, "SYM_AMP_LAUNCHES", 0)
-    monkeypatch.setattr(cuda_jacobi, "SYM_GRAD_LAUNCHES", 0)
+    monkeypatch.setattr(build, "LAUNCHES", Counter())
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_jacobi.transfer_amp_sym_cuda(torch.zeros(4, 4, 8),
                                           torch.zeros(8), 0, 3)
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_jacobi.infidelity_and_gradient_sym_cuda(torch.zeros(4, 4),
                                                      torch.zeros(8, 5), 0, 3)
-    assert cuda_jacobi.SYM_AMP_LAUNCHES == 0
-    assert cuda_jacobi.SYM_GRAD_LAUNCHES == 0
+    assert not build.LAUNCHES
 
 
-@pytest.mark.parametrize("bad", ["float64", "noncontiguous", "n_large",
-                                 "spin"])
+#: each fault the shared checks of utils/build.py refuse, and the message
+Z = torch.zeros
+BAD_INPUTS = {
+    "float64": (lambda: build.check_layout(xs=Z(8, 5, dtype=torch.float64)),
+                "float32 only; xs is torch.float64"),
+    "noncontiguous": (lambda: build.check_layout(xs=Z(5, 8).T),
+                      "xs must be contiguous"),
+    "dtype before layout": (
+        lambda: build.check_layout(a=Z(5, 8).T, b=Z(8, dtype=torch.float64)),
+        "float32 only; b is"),
+    "int32 named": (lambda: build.check_layout({"n": torch.int32}, n=Z(8)),
+                    "n must be torch.int32, got torch.float32"),
+    "int32 unnamed": (lambda: build.check_layout(
+        n=Z(8, dtype=torch.int32)), "float32 only; n is torch.int32"),
+    "n_large": (lambda: build.check_n(11, 0, 3), "2..10, got n=11"),
+    "n_small": (lambda: build.check_n(1), "2..10, got n=1"),
+    "spin": (lambda: build.check_n(4, 0, 4),
+             r"spins \(0, 4\) out of range for n=4"),
+    "negative spin": (lambda: build.check_n(4, -1, 3), "out of range"),
+    "off the card": (lambda: build.check_device(a=Z(2, device="meta")),
+                     "a must lie on one CUDA device, got meta"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_INPUTS))
 def test_kernel_input_checks(bad):
     """What the kernels do not take is refused before any launch."""
-    cuda_jacobi._check_tensors(a=torch.zeros(4, 4, 8), t=torch.zeros(8))
-    cuda_jacobi._check_sizes(4, 0, 3)
-    with pytest.raises(ValueError):
-        if bad == "float64":
-            cuda_jacobi._check_tensors(xs=torch.zeros(8, 5,
-                                                      dtype=torch.float64))
-        elif bad == "noncontiguous":
-            cuda_jacobi._check_tensors(xs=torch.zeros(5, 8).T)
-        elif bad == "n_large":
-            cuda_jacobi._check_sizes(11, 0, 3)
-        else:
-            cuda_jacobi._check_sizes(4, 0, 4)
+    build.check_layout({"n": torch.int32}, a=Z(4, 4, 8),
+                       n=Z(8, dtype=torch.int32))
+    build.check_n(4, 0, 3)
+    build.check_n(10, 9)
+    fn, match = BAD_INPUTS[bad]
+    with pytest.raises(ValueError, match=match):
+        fn()
